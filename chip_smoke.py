@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
-Drives the port's main path — the two-stage detect→crop→keypoints serving
-path at the full width of YOLOv3-416 and RektNet, on seeded random weights
-— and checks its hand-written CUDA kernels:
+Drives the port's main paths — the two-stage detect→crop→keypoints serving
+path at the full width of YOLOv3-416 and RektNet, in bf16/f32 and in its
+int8 configuration, on seeded random weights — and checks its hand-written
+CUDA kernels:
 
 1. device: requires CUDA (no CPU fallback); prints the card's name and
    power limit as nvidia-smi reports them;
@@ -13,19 +14,27 @@ path at the full width of YOLOv3-416 and RektNet, on seeded random weights
 3. kernels: K1 (ROI crop), K2 (soft-argmax) and K3 (threshold + top-k +
    NMS) against their plain PyTorch versions on the card, at the shapes
    the main path gives them, in f32 and bf16, with CUDA-event timings;
-4. slice: the f32 pipeline on the card against the same port on CPU
+4. bf16 slice: the f32 pipeline on the card against the same port on CPU
    copies (plain path), then a bf16 ``TwoStageServer`` that warms up and
-   answers requests — one of them a short batch that pads — while every
-   kernel's launch counter must grow.
+   answers requests — one of them a short batch that pads — while K1-K3's
+   launch counters must grow;
+5. int8: the int8 models are calibrated and quantized on the card; K4
+   (fused entry block) against its plain version at the main path's
+   (8, 208, 208, 128), bit for bit, with its registers and timings; the
+   int8 pipeline on the card against CPU copies (K4's output bit-equal,
+   masks equal); then an int8 ``TwoStageServer`` whose K1-K4 launch
+   counters must all grow, with frames/s beside the bf16 server's.
 
 Prints one JSON line of per-kernel results before the last line, which is
-``{"ok": true, "device": {...}}``. Any failure raises: exit code ≠ 0 and
-no result line. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``; each row's ``launches`` is counted over
+the int8 server's requests. Any failure raises: exit code ≠ 0 and no
+result line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +49,8 @@ KERNEL_ROWS = {  # name → (source, TPU kernel it replaces)
                    "mit_driverless_cv_traininginfra_tpu/ops/pallas_kernels.py:68"),
     "nms_topk": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/nms_topk.cu",
                  "mit_driverless_cv_traininginfra_tpu/ops/pallas_kernels.py:209"),
+    "entry_block": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/entry_block.cu",
+                    "mit_driverless_cv_traininginfra_tpu/ops/pallas_entry.py:337"),
 }
 B_SERVE, SIZE, MAX_DET = 8, 416, 16
 CROP_N = 64                  # crops per kernel check: a served capacity at B=8
@@ -254,7 +265,9 @@ def phase_k3(dev, rows: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def build_models(dev, dtype):
+def seeded_folded(dev):
+    """The seeded YOLOv3-416 (heads sliced to one class) and RektNet-16,
+    BN folded, f32 on ``dev``: ``(spec, darknet folded, rektnet folded)``."""
     from mit_driverless_cv_traininginfra_tpu.config.flagship import flagship_spec
     from mit_driverless_cv_traininginfra_tpu_torch import convert
     from mit_driverless_cv_traininginfra_tpu_torch.models import (
@@ -270,9 +283,16 @@ def build_models(dev, dtype):
     folded = darknet.fold_bn(convert.from_jax(yp, dev), convert.from_jax(ys, dev),
                              spec)
     spec1, folded1 = stem_opt.slice_preyolo(spec, folded)
+    return spec1, folded1, rektnet.fold_bn(convert.from_jax(rp, dev),
+                                           convert.from_jax(rs, dev))
+
+
+def build_models(dev, dtype):
+    from mit_driverless_cv_traininginfra_tpu_torch.models import darknet, rektnet
+
+    spec1, folded1, rfolded = seeded_folded(dev)
     yolo = darknet.Darknet(spec1, folded1).to(dtype=dtype)
-    rekt = rektnet.RektNet(rektnet.fold_bn(convert.from_jax(rp, dev),
-                                           convert.from_jax(rs, dev))).to(dtype=dtype)
+    rekt = rektnet.RektNet(rfolded).to(dtype=dtype)
     return yolo.eval(), rekt.eval()
 
 
@@ -328,34 +348,39 @@ def phase_slice_f32(dev, frames_np):
     return thresh
 
 
-def phase_serve_bf16(dev, frames_np, thresh, smi):
-    from mit_driverless_cv_traininginfra_tpu_torch import _shared
-    from mit_driverless_cv_traininginfra_tpu_torch.infer.serving import (
-        TwoStageServer,
-    )
+def kernel_wrappers() -> dict:
     from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_crop import roi_crop
     from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
         fused_softargmax,
         nms_topk,
     )
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.entry import (
+        fused_entry_block,
+    )
 
-    torch.backends.cudnn.benchmark = True
-    yolo, rekt = build_models(dev, torch.bfloat16)
-    yolo.to(memory_format=torch.channels_last)
-    rekt.to(memory_format=torch.channels_last)
-    # ~9 kept detections per frame at this threshold: buckets of 16 up to
-    # 112 (< B·max_det = 128, so every bucket runs the compacted path)
+    return {"roi_crop": roi_crop, "softargmax": fused_softargmax,
+            "nms_topk": nms_topk, "entry_block": fused_entry_block}
+
+
+def serve(label: str, yolo, rekt, frames, thresh, smi, n_full: int = 63):
+    """A ``TwoStageServer`` at B=8 that warms buckets of 16 up to 112 (<
+    B·max_det = 128, so every bucket runs the compacted path), then answers
+    a short batch of 6 that pads and ``n_full`` full batches. Every kernel
+    counter is set to 0 just before the requests and read just after.
+    Returns ``(launches, frames/s)``."""
+    from mit_driverless_cv_traininginfra_tpu_torch import _shared
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.serving import (
+        TwoStageServer,
+    )
+
     policy = _shared.capacity().AdaptiveCapacity(floor=64, quantum=16,
                                                  warmup_capacity=96)
     server = TwoStageServer(yolo, rekt, conf_thresh=thresh, max_det=MAX_DET,
                             policy=policy)
     server.warmup([B_SERVE], capacities=[64, 80, 96, 112])
-    frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
-    wrappers = {"roi_crop": roi_crop, "softargmax": fused_softargmax,
-                "nms_topk": nms_topk}
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    n_full = 63
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = [server(frames[:6])]
@@ -371,17 +396,181 @@ def phase_serve_bf16(dev, frames_np, thresh, smi):
         kept += int(m.sum())
         check(bool(torch.isfinite(o.boxes[m]).all()
                    and torch.isfinite(o.keypoints[m]).all()),
-              "bf16 serve: non-finite output on a kept slot")
+              f"{label} serve: non-finite output on a kept slot")
     stats = server.stats()
-    log(f"serve bf16 stats: {json.dumps(stats, default=str)}")
-    log(f"serve bf16: {len(outs)} requests, {n_frames} frames in {wall!r} s "
-        f"= {n_frames / wall!r} frames/s, kept detections {kept}, "
+    fps = n_frames / wall
+    log(f"serve {label} stats: {json.dumps(stats, default=str)}")
+    log(f"serve {label}: {len(outs)} requests, {n_frames} frames in {wall!r} s "
+        f"= {fps!r} frames/s, kept detections {kept}, "
         f"launches {launches} on {smi}")
-    check(kept > 0, "bf16 serve: no detection kept")
-    check(stats["batch_pads"] >= 1, "bf16 serve: the short batch did not pad")
+    check(kept > 0, f"{label} serve: no detection kept")
+    check(stats["batch_pads"] >= 1, f"{label} serve: the short batch did not pad")
+    return launches, fps
+
+
+def phase_serve_bf16(dev, frames_np, thresh, smi):
+    torch.backends.cudnn.benchmark = True
+    yolo, rekt = build_models(dev, torch.bfloat16)
+    yolo.to(memory_format=torch.channels_last)
+    rekt.to(memory_format=torch.channels_last)
+    frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
+    launches, fps = serve("bf16", yolo, rekt, frames, thresh, smi)
+    path = ("roi_crop", "softargmax", "nms_topk")
+    check(all(launches[k] > 0 for k in path),
+          f"a kernel of the bf16 path never launched while serving: {launches}")
+    check(launches["entry_block"] == 0, "the bf16 path launched K4")
+    return fps
+
+
+# ---------------------------------------------------------------------------
+# phase 5: int8
+# ---------------------------------------------------------------------------
+
+SLOPE = 0.1  # YOLOv3's leaky slope (flagship_spec)
+
+
+def quantize_on_card(dev, frames_np):
+    """Calibrate and quantize the seeded models as bench.py does: the f32
+    folded Darknet on the 8 frames, RektNet on 32 synthetic cone crops.
+    Returns ``(spec, yolo_q, entry_q, rekt_q)``, tensors on ``dev``."""
+    from mit_driverless_cv_traininginfra_tpu_torch import _shared
+    from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
+
+    spec1, folded1, rfolded = seeded_folded(dev)
+    check(entry.entry_block_applicable(spec1), "YOLOv3-416 takes no fused entry")
+    amax = quantize.calibrate(spec1, folded1, torch.from_numpy(frames_np).to(dev))
+    crops, _ = _shared.synthetic().rektnet_batch(np.random.default_rng(3), 32)
+    ramax = quantize.calibrate_rektnet(rfolded, np.asarray(crops, np.float32))
+    return (spec1, quantize.quantize_params(spec1, folded1, amax),
+            entry.quantize_entry(folded1, amax),
+            quantize.quantize_rektnet_params(rfolded, ramax))
+
+
+def tree_to(tree, dev):
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    return {k: tree_to(v, dev) for k, v in tree.items()}
+
+
+def int8_models(bundles, dev):
+    from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
+
+    spec1, yolo_q, entry_q, rekt_q = bundles
+    yolo = quantize.Int8Darknet(spec1, yolo_q, entry_q).to(dev)
+    return yolo.eval(), quantize.Int8RektNet(rekt_q).to(dev).eval()
+
+
+def ptxas_lines(kernel: str) -> list[str]:
+    """nvcc's register / spill lines (-Xptxas -v) of one kernel."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import _lib
+
+    out, current = [], ""
+    for line in _lib.build_info.log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?$",
+                      line.strip())
+        if m:
+            current = m.group(1)
+        elif kernel in current and ("Used" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
+def phase_k4(dev, rows: dict, entry_q, frames_np) -> None:
+    """K4 against its plain version at the main path's shape, both on the
+    bundle as a model packs it; the times are the wrappers' calls."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
+
+    ep = entry.pack_entry(entry_q)
+    frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
+    hq = entry.conv1_4x4_q8(frames, ep, SLOPE)
+    check(tuple(hq.shape) == (B_SERVE, SIZE // 2, SIZE // 2, 128), f"hq {hq.shape}")
+    got = entry.fused_entry_block(hq, ep, SLOPE)
+    ref = entry._entry_rest(hq, ep, SLOPE)
+    torch.cuda.synchronize()
+    n_diff = int((got != ref).sum())
+    # extreme values on every border row and column: the conv2p pad (top
+    # and left) and the 3×3's zeros outside the frame
+    rng = np.random.default_rng(4)
+    edge = hq.clone()
+    sign = torch.from_numpy(rng.choice([-127, 127], (4, B_SERVE, SIZE // 2, 128))
+                            .astype(np.int8)).to(dev)
+    edge[:, 0], edge[:, -1], edge[:, :, 0], edge[:, :, -1] = sign
+    got_e = entry.fused_entry_block(edge, ep, SLOPE)
+    ref_e = entry._entry_rest(edge, ep, SLOPE)
+    torch.cuda.synchronize()
+    n_diff_e = int((got_e != ref_e).sum())
+    k_ms, p_ms = paired_ms(lambda: entry.fused_entry_block(hq, ep, SLOPE),
+                           lambda: entry._entry_rest(hq, ep, SLOPE))
+    for line in ptxas_lines("entry_block"):
+        log(f"K4 ptxas: {line}")
+    log(f"K4 entry_block int8: hq {tuple(hq.shape)} → {tuple(got.shape)} "
+        f"differing={n_diff}/{got.numel()} (edges ±127: {n_diff_e}) "
+        f"kernel {k_ms!r} ms plain {p_ms!r} ms")
+    check(n_diff == 0 and n_diff_e == 0, "K4 differs from its plain version")
+    rows["entry_block"].update(ms=k_ms, plain_ms=p_ms,
+                               max_abs_err=max(max_abs(got, ref), max_abs(got_e, ref_e)))
+
+
+def phase_slice_int8(dev, frames_np, bundles):
+    """The int8 pipeline on the card against the same port on CPU copies
+    at B=2: K4's output bit-equal, masks equal at a gap-centred threshold,
+    boxes, scores and keypoints within stated bounds. Returns the card
+    models and the threshold."""
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
+        two_stage_pipeline_int8,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
+
+    yolo, rekt = int8_models(bundles, dev)
+    cpu = (bundles[0], *(tree_to(b, "cpu") for b in bundles[1:]))
+    yolo_c, rekt_c = int8_models(cpu, "cpu")
+    frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        thresh = pick_conf_thresh(yolo.detections(frames, with_classes=False),
+                                  MAX_DET)
+        resq = entry.entry_forward_int8(yolo.entry.as_dict(), frames[:2], SLOPE)
+        resq_c = entry.entry_forward_int8(yolo_c.entry.as_dict(),
+                                          frames[:2].cpu(), SLOPE)
+    resq_eq = torch.equal(resq.cpu(), resq_c)
+    kw = dict(conf_thresh=thresh, max_det=MAX_DET, crop_capacity=16)
+    out = two_stage_pipeline_int8(yolo, rekt, frames[:2], **kw)
+    t0 = time.perf_counter()
+    ref = two_stage_pipeline_int8(yolo_c, rekt_c, frames[:2].cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    mask_eq = torch.equal(out.mask.cpu(), ref.mask)
+    m = ref.mask
+    rbox = ref.boxes[m]
+    size = (rbox[:, 2:] - rbox[:, :2]).amax(dim=1).clamp(min=1.0)
+
+    def per_size(a, b):  # max |Δ| of each detection over its box size
+        d = (a - b).abs().reshape(len(size), -1).amax(dim=1)
+        return float((d / size).max()) if len(size) else 0.0
+
+    box_err = per_size(out.boxes.cpu()[m], rbox)
+    kpt_err = per_size(out.keypoints.cpu()[m], ref.keypoints[m])
+    score_err = max_abs(out.scores.cpu()[m], ref.scores[m])
+    log(f"slice int8 card vs CPU (B=2, capacity 16): conf_thresh {thresh!r} "
+        f"detections {int(m.sum())} resq_equal={resq_eq} masks_equal={mask_eq} "
+        f"max |d|/box size: boxes {box_err!r} keypoints {kpt_err!r}; "
+        f"scores max |d| {score_err!r} (CPU run {cpu_s:.1f} s)")
+    check(resq_eq, "int8 slice: K4's output differs between card and CPU")
+    check(mask_eq, "int8 slice: detection masks differ between card and CPU")
+    check(int(m.sum()) > 0, "int8 slice: no detection reached the keypoints")
+    # the integer path and the f64-summed head are exact on both devices;
+    # what differs is f32 exp/sigmoid in the decode (ulps), the f32 RektNet
+    # head (summation order) and, through the box, the crop's samples
+    check(box_err <= 1e-4 and score_err <= 1e-5 and kpt_err <= 1e-3,
+          "int8 slice: boxes / scores / keypoints beyond their bounds")
+    return yolo, rekt, thresh
+
+
+def phase_serve_int8(yolo, rekt, frames_np, thresh, smi):
+    frames = torch.from_numpy(frames_np).to(yolo.device, torch.bfloat16)
+    launches, fps = serve("int8", yolo, rekt, frames, thresh, smi)
     check(all(v > 0 for v in launches.values()),
-          f"a kernel of the path never launched while serving: {launches}")
-    return launches
+          f"a kernel of the int8 path never launched while serving: {launches}")
+    return launches, fps
 
 
 def main() -> int:
@@ -406,7 +595,13 @@ def main() -> int:
     frames_np, _ = _shared.synthetic().yolo_batch(np.random.default_rng(42),
                                                   B_SERVE, SIZE)
     thresh = phase_slice_f32(dev, frames_np)
-    launches = phase_serve_bf16(dev, frames_np, thresh, smi)
+    fps_bf16 = phase_serve_bf16(dev, frames_np, thresh, smi)
+    bundles = quantize_on_card(dev, frames_np)
+    phase_k4(dev, rows, bundles[2], frames_np)
+    yolo_q, rekt_q, thresh_q = phase_slice_int8(dev, frames_np, bundles)
+    launches, fps_int8 = phase_serve_int8(yolo_q, rekt_q, frames_np, thresh_q, smi)
+    log(f"served frames/s at B={B_SERVE}: int8 {fps_int8!r}, bf16 {fps_bf16!r}, "
+        f"int8/bf16 {fps_int8 / fps_bf16!r} on {smi}")
     for name, row in rows.items():
         row["launches"] = launches[name]
     check("jax" not in sys.modules, "jax was imported")

@@ -5,7 +5,10 @@ HWIO conv weights under the key ``"w"``. :func:`from_jax` maps such a tree,
 given as numpy arrays, to the same tree of torch tensors with OIHW conv
 weights; BN folding then happens in the port's own ``fold_bn``
 (``models.darknet.fold_bn``, ``models.rektnet.fold_bn``), so folding is
-held against the JAX package too.
+held against the JAX package too. :func:`quantized_from_jax` carries the
+JAX package's int8 bundles across (``quantize_params``,
+``quantize_rektnet_params``, ``quantize_entry``) with their dtypes, so
+both packages can run on identical integers.
 
 No trained weights ship with the repository, so :func:`init_darknet_np`
 and :func:`init_rektnet_np` make seeded random JAX-layout trees in numpy;
@@ -36,6 +39,29 @@ def from_jax(tree, device="cpu"):
         if key == "w" and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+def quantized_from_jax(tree, device="cpu"):
+    """Nested dict of numpy arrays from the JAX package's int8 bundles →
+    the port's tensors on ``device``, dtypes kept (int8, f32, bf16 — a
+    bf16 leaf comes as ml_dtypes' ``bfloat16`` and goes through f32,
+    exactly); 4-D arrays are conv weights and go HWIO → OIHW. K4's
+    ``w2`` (4, 128, 64), ``w1x1`` (64, 32) and ``w3im`` (288, 64) keep
+    their layouts, which are the port's too."""
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            out[key] = quantized_from_jax(v, device)
+            continue
+        a = np.asarray(v)
+        bf16 = a.dtype.name == "bfloat16"
+        if bf16:
+            a = a.astype(np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        t = torch.from_numpy(a.copy())  # C order, 0-d stays 0-d
+        out[key] = (t.to(torch.bfloat16) if bf16 else t).to(device)
     return out
 
 

@@ -1,11 +1,16 @@
 """Two-stage perception pipeline: YOLO detect → crop → RektNet keypoints
-(counterpart of the JAX package's ``infer/pipeline.py``, bf16/f32
-configuration).
+(counterpart of the JAX package's ``infer/pipeline.py``): the bf16/f32
+configuration and the int8 one (``two_stage_pipeline_int8``, the same
+function).
 
     frames ─ Darknet ─ decode ─ threshold/top-k/NMS (K3) ─ top-K boxes
            └───────────────────────────────► ROI bilinear crop 80×80 (K1)
                                                 └─ RektNet ─ soft-argmax (K2)
                                                         └─ keypoints in frame px
+
+In the int8 configuration the detector is ``Int8Darknet`` (fused entry
+with kernel K4, int8 convolutions, bf16 activations) and the keypoint net
+``Int8RektNet``; frames are bf16.
 
 Fixed capacity everywhere, as in the JAX package: every frame yields
 exactly ``max_det`` slots (masked), and the compacted crop path runs
@@ -20,8 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import Darknet
-from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import RektNet
+from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import YoloHeads
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_crop import roi_crop
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
     _topk_stable,
@@ -80,19 +84,20 @@ def _crops_and_keypoints(kpt_apply, frames, boxes, scores, mask,
 
 
 @torch.inference_mode()
-def two_stage_pipeline(yolo: Darknet, rekt: RektNet, frames,
+def two_stage_pipeline(yolo: YoloHeads, rekt, frames,
                        conf_thresh: float = 0.8, nms_thresh: float = 0.25,
                        max_det: int = 16, crop_size: int = 80,
                        crop_capacity=None) -> PipelineOut:
     """frames (B, H, W, 3) in [0, 1] (or uint8), H/W = the spec's input
-    size, on the models' device.
+    size, on the models' device; ``yolo`` is a ``Darknet`` or an
+    ``Int8Darknet``, ``rekt`` a ``RektNet`` or an ``Int8RektNet``.
 
     uint8 frames are the wire-efficient feed: normalised on the device in
-    f32 (/255) and cast to the detector's dtype. Dropped and invalid slots
-    get all-zero keypoints (a detectable sentinel), not the box corner."""
+    f32 (/255) and cast to ``yolo.frame_dtype`` (bf16 for int8). Dropped
+    and invalid slots get all-zero keypoints (a detectable sentinel), not
+    the box corner."""
     if frames.dtype == torch.uint8:
-        fdt = next(yolo.parameters()).dtype
-        frames = (frames.float() / 255.0).to(fdt)
+        frames = (frames.float() / 255.0).to(yolo.frame_dtype)
     dets = yolo(frames)  # (B, N, 5): the 1-class decode
     boxes, scores, mask = _postprocess(dets, conf_thresh, nms_thresh, max_det)
     pts, kept = _crops_and_keypoints(lambda c: rekt(c)[1], frames, boxes,
@@ -102,3 +107,10 @@ def two_stage_pipeline(yolo: Darknet, rekt: RektNet, frames,
     kpts = torch.where(kept[..., None, None], x0y0 + pts * wh_box,
                        torch.zeros((), device=boxes.device))
     return PipelineOut(boxes, scores, mask, kpts)
+
+
+# The int8 serving configuration (the JAX package's two_stage_pipeline_int8
+# with entry_q inside the detector) runs the same stages on the models of
+# models.quantize: calibrate → quantize_params → Int8Darknet (fused entry,
+# kernel K4) and calibrate_rektnet → quantize_rektnet_params → Int8RektNet.
+two_stage_pipeline_int8 = two_stage_pipeline

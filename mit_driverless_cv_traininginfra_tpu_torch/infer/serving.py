@@ -1,12 +1,16 @@
 """Serving wrapper: fused pipeline + adaptive crop capacity (counterpart of
-the JAX package's ``infer/serving.py``, bf16/f32 weights).
+the JAX package's ``infer/serving.py``).
 
-The server owns what a serving process needs around
-:func:`~.pipeline.two_stage_pipeline`:
+The server serves the bf16/f32 configuration (``Darknet`` + ``RektNet``,
+:func:`~.pipeline.two_stage_pipeline`) or the int8 one (``Int8Darknet`` +
+``Int8RektNet``, ``two_stage_pipeline_int8``, the same function), as
+the models it is given are, and owns what a serving process needs around
+the pipeline:
 
 - the ``AdaptiveCapacity`` policy (p99-margin crop capacity with shrink
   hysteresis, quantised into a few buckets), shared with the JAX package;
-- ``warmup()``, which runs each (batch, capacity) bucket once before
+- ``warmup()``, which runs each (batch, capacity) bucket once on zero
+  frames in the detector's ``frame_dtype`` (bf16 for int8) before
   serving, so the kernels are built and cuDNN has met every shape;
 - short batches padded up to a warmed batch size on the device and sliced
   back;
@@ -16,12 +20,13 @@ The server owns what a serving process needs around
   never drains the batches queued after it. Only the first observation
   (the policy's bootstrap) is fenced at once.
 
-Not ported: the int8 configuration (ROADMAP Queue 1 item 7), the device
-mesh, the fenced latency mode (``measure_latency``,
-``defer_observation=False``), the compile-on-grow and no-pad switches, and
-the windowed-crop oversize watch with its auto-degrade, which existed only
-for the TPU crop kernel's window contract — the CUDA crop has no box-size
-limit.
+The int8 configuration comes as models, not as the JAX server's quantized
+bundles (``yolo_q``, ``rekt_q``, ``entry_q``). Not ported: the int8
+packed-stem variant (``stem_q``), the device mesh,
+the fenced latency mode (``measure_latency``, ``defer_observation=False``),
+the compile-on-grow and no-pad switches, and the windowed-crop oversize
+watch with its auto-degrade, which existed only for the TPU crop kernel's
+window contract — the CUDA crop has no box-size limit.
 
 Usage::
 
@@ -46,8 +51,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
     PipelineOut,
     two_stage_pipeline,
 )
-from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import Darknet
-from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import RektNet
+from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import YoloHeads
 
 
 class _Observation(NamedTuple):
@@ -71,17 +75,13 @@ class TwoStageServer:
     counted in ``capacity_exhausted``), so serving only runs shapes that
     have run before."""
 
-    def __init__(self, yolo: Darknet, rekt: RektNet, *,
+    def __init__(self, yolo: YoloHeads, rekt, *,
                  conf_thresh: float = 0.8, nms_thresh: float = 0.25,
-                 max_det: int = 16, policy=None, observe_every: int = 8,
-                 yolo_q=None, stem_q=None, rekt_q=None, entry_q=None):
-        if any(q is not None for q in (yolo_q, stem_q, rekt_q, entry_q)):
-            raise NotImplementedError(
-                "int8 serving is not ported yet: ROADMAP.md Queue 1 item 7 "
-                "(hand-written int8 convolution, then kernels K4 and K5)")
+                 max_det: int = 16, policy=None, observe_every: int = 8):
         self.yolo, self.rekt = yolo, rekt
         self.spec = yolo.spec
-        self.device = next(yolo.parameters()).device
+        self.device = yolo.device
+        self.frame_dtype = yolo.frame_dtype
         self.conf_thresh = conf_thresh
         self.nms_thresh = nms_thresh
         self.max_det = max_det
@@ -110,14 +110,13 @@ class TwoStageServer:
     def warmup(self, batch_sizes: Iterable[int],
                capacities: Sequence[int]) -> float:
         """Run every (batch, capacity) bucket once on zero frames in the
-        detector's dtype and wait for it. Returns the seconds spent (also
-        accumulated in ``warmup_seconds``)."""
+        detector's ``frame_dtype`` and wait for it. Returns the seconds
+        spent (also accumulated in ``warmup_seconds``)."""
         size = self.spec.net.height
-        dtype = next(self.yolo.parameters()).dtype
         t0 = time.perf_counter()
         for B in batch_sizes:
             frames = torch.zeros((B, size, size, self.spec.net.channels),
-                                 dtype=dtype, device=self.device)
+                                 dtype=self.frame_dtype, device=self.device)
             for cap in capacities:
                 cap = int(min(cap, B * self.max_det))
                 self._run(frames, cap).scores.cpu()  # waits for the bucket

@@ -6,12 +6,14 @@ modules are jax-free and imported as they are). Parameter trees mirror the
 JAX package's with OIHW weights: ``{"<block index>": {"w", "bn": {"scale",
 "bias"}}}`` for BN convs and ``{"w", "b"}`` for the linear pre-yolo convs,
 plus a state tree of BN running ``{"mean", "var"}``. :func:`fold_bn` folds
-them; :class:`Darknet` runs the folded graph. Frames come in NHWC and are
-viewed as NCHW (channels_last) inside; head outputs go back out in NHWC.
+them; :class:`Darknet` runs the folded graph. Frames, activations and head
+outputs are NHWC; each convolution views its input as NCHW (channels_last).
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Sequence, Tuple
 
 import torch
@@ -59,9 +61,24 @@ def _maxpool(x, size: int, stride: int):
     return F.max_pool2d(x, size, stride, (size - 1) // 2)
 
 
+@functools.cache
+def _slope_in(slope: float, dtype) -> float:
+    """``slope`` rounded to ``dtype`` (bf16: 0.1 → 0.10009765625)."""
+    return float(torch.tensor(slope, dtype=dtype))
+
+
+def _leaky(x, slope: float):
+    """The JAX package's ``_leaky``, ``where(x >= 0, x, x * slope)``, where
+    a weak Python float meets the tensor: the slope is rounded to
+    ``x.dtype`` first and the product is rounded once. ``F.leaky_relu(x,
+    0.1)`` multiplies bf16 by the f32 0.1 and lands one bf16 ulp off on
+    ~10% of negative values; given the rounded slope it rounds as JAX."""
+    return F.leaky_relu(x, _slope_in(slope, x.dtype))
+
+
 def _upsample(x, stride: int):
-    """Nearest-neighbour ×stride on NCHW."""
-    return x.repeat_interleave(stride, dim=2).repeat_interleave(stride, dim=3)
+    """Nearest-neighbour ×stride on NHWC."""
+    return x.repeat_interleave(stride, dim=1).repeat_interleave(stride, dim=2)
 
 
 def decode_head(head_out, anchors: Sequence[Tuple[float, float]],
@@ -98,21 +115,26 @@ def decode_head(head_out, anchors: Sequence[Tuple[float, float]],
     return out.reshape(b, na * gh * gw, out.shape[-1])
 
 
-class Darknet(nn.Module):
-    """Eval-mode Darknet on a :func:`fold_bn` tree of ``spec``."""
+class YoloHeads(nn.Module):
+    """What every detector of a spec shares: the walk over its blocks on
+    NHWC activations and the f32 anchor decode of its yolo heads. A
+    subclass supplies each conv block's step (:meth:`_conv`) and the dtype
+    it takes frames in (``frame_dtype``); it may run the first blocks
+    itself (:meth:`_enter`)."""
 
-    def __init__(self, spec: NetworkSpec, folded):
+    frame_dtype: torch.dtype
+
+    def __init__(self, spec: NetworkSpec):
         super().__init__()
         self.spec = spec
-        self.convs = nn.ModuleDict({
-            str(i): conv2d(folded[str(i)]["w"], folded[str(i)]["b"],
-                           stride=b.stride, padding=(b.size - 1) // 2)
-            for i, b in enumerate(spec.blocks) if isinstance(b, ConvBlock)
-        })
         self._yolo = [b for b in spec.blocks if isinstance(b, YoloBlock)]
         # f32 anchors per device, kept off the module's buffers so that
         # .to(torch.bfloat16) cannot round them
         self._anchors: dict[torch.device, list[torch.Tensor]] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return next(itertools.chain(self.parameters(), self.buffers())).device
 
     def _anchor_tensors(self, device):
         if device not in self._anchors:
@@ -121,29 +143,40 @@ class Darknet(nn.Module):
                 for yb in self._yolo]
         return self._anchors[device]
 
+    def _enter(self, x):
+        """Frames (B, H, W, C) → (activation, outputs of the blocks run so
+        far); the walk goes on from block ``len(outputs)``."""
+        return x, []
+
+    def _conv(self, i: int, x):
+        """Conv block ``i`` on NHWC ``x``, before its activation."""
+        raise NotImplementedError
+
     def forward_features(self, x):
         """x (B, H, W, C) → raw pre-yolo maps, one per yolo head, each
         NHWC (B, h, w, A·(5+C))."""
         slope = self.spec.net.leaky_slope
-        x = x.permute(0, 3, 1, 2)
-        outputs, layer_outputs = [], []
-        for i, b in enumerate(self.spec.blocks):
+        x, layer_outputs = self._enter(x)
+        outputs = []
+        for i in range(len(layer_outputs), len(self.spec.blocks)):
+            b = self.spec.blocks[i]
             if isinstance(b, ConvBlock):
-                x = self.convs[str(i)](x)
+                x = self._conv(i, x)
                 if b.activation == "leaky":
-                    x = F.leaky_relu(x, slope)
+                    x = _leaky(x, slope)
                 elif b.activation == "ReLU":
                     x = F.relu(x)
             elif isinstance(b, MaxPoolBlock):
-                x = _maxpool(x, b.size, b.stride)
+                x = _maxpool(x.permute(0, 3, 1, 2), b.size,
+                             b.stride).permute(0, 2, 3, 1)
             elif isinstance(b, UpsampleBlock):
                 x = _upsample(x, b.stride)
             elif isinstance(b, RouteBlock):
-                x = torch.cat([layer_outputs[li] for li in b.layers], dim=1)
+                x = torch.cat([layer_outputs[li] for li in b.layers], dim=-1)
             elif isinstance(b, ShortcutBlock):
                 x = layer_outputs[-1] + layer_outputs[b.from_layer]
             elif isinstance(b, YoloBlock):
-                outputs.append(x.permute(0, 2, 3, 1))
+                outputs.append(x)
             layer_outputs.append(x)
         return outputs
 
@@ -160,3 +193,23 @@ class Darknet(nn.Module):
     def forward(self, x):
         """The serving decode: ``detections(x, with_classes=False)``."""
         return self.detections(x, with_classes=False)
+
+
+class Darknet(YoloHeads):
+    """Eval-mode Darknet on a :func:`fold_bn` tree of ``spec``. It takes
+    frames in its weights' dtype (``frame_dtype``)."""
+
+    def __init__(self, spec: NetworkSpec, folded):
+        super().__init__(spec)
+        self.convs = nn.ModuleDict({
+            str(i): conv2d(folded[str(i)]["w"], folded[str(i)]["b"],
+                           stride=b.stride, padding=(b.size - 1) // 2)
+            for i, b in enumerate(spec.blocks) if isinstance(b, ConvBlock)
+        })
+
+    @property
+    def frame_dtype(self) -> torch.dtype:
+        return next(iter(self.convs.values())).weight.dtype
+
+    def _conv(self, i: int, x):
+        return self.convs[str(i)](x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

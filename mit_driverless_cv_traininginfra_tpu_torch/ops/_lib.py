@@ -47,9 +47,14 @@ SIGNATURES = {
     # boxes, scores, keys, out_boxes, out_scores, out_idx, out_keep,
     # B, N, k, conf, overlap, stream
     "mdcv_nms_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    # hq, w2, w2_scale, w2_b, w1x1, w1x1_scale, w1x1_b, w3im, w3_scale,
+    # w3_b, sx, out, B, H, W, slope, dtype, stream
+    "mdcv_entry_block": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _F, _I, _P),
 }
 
-DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+# each kernel checks the code it is given and refuses the others
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 
 
 def _sources() -> list[Path]:
@@ -132,7 +137,7 @@ def check(code: int, what: str) -> None:
 def dtype_code(dtype) -> int:
     name = str(dtype).removeprefix("torch.")
     if name not in DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+        raise TypeError(f"kernels take {', '.join(DTYPE_CODES)}, got {dtype}")
     return DTYPE_CODES[name]
 
 

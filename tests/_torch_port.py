@@ -5,6 +5,7 @@ PyTorch port."""
 from __future__ import annotations
 
 import os
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -12,18 +13,96 @@ import numpy as np
 
 from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
 from mit_driverless_cv_traininginfra_tpu.models import darknet as jdarknet
+from mit_driverless_cv_traininginfra_tpu.models import quantize as jquantize
 from mit_driverless_cv_traininginfra_tpu.models import rektnet as jrektnet
 from mit_driverless_cv_traininginfra_tpu.models.stem_opt import (
     slice_preyolo as jslice_preyolo,
 )
+from mit_driverless_cv_traininginfra_tpu.ops import pallas_entry as jentry
 from mit_driverless_cv_traininginfra_tpu_torch import convert
 from mit_driverless_cv_traininginfra_tpu_torch.models import (
     darknet,
+    quantize,
     rektnet,
     stem_opt,
 )
 
 TINY_CFG = os.path.join(os.path.dirname(__file__), "fixtures", "tiny_test.cfg")
+
+# the YOLOv3 entry pattern (blocks 0-5) and one head at 64², the text of
+# tests/test_pallas_entry.py:ENTRY_CFG
+ENTRY_CFG = textwrap.dedent("""\
+    [net]
+    width=64
+    height=64
+    onnx_height=32
+    classes=1
+    channels=3
+    yolo_masks=0,1,2
+    yolo_scales=2
+    leaky_slope=0.1
+    conv_activation=leaky
+    conf_thresh=0.8
+    nms_thresh=0.25
+    iou_thresh=0.5
+
+    [convolutional]
+    batch_normalize=1
+    filters=32
+    size=3
+    stride=1
+    pad=1
+    activation=leaky
+
+    [convolutional]
+    batch_normalize=1
+    filters=64
+    size=3
+    stride=2
+    pad=1
+    activation=leaky
+
+    [convolutional]
+    batch_normalize=1
+    filters=32
+    size=1
+    stride=1
+    pad=1
+    activation=leaky
+
+    [convolutional]
+    batch_normalize=1
+    filters=64
+    size=3
+    stride=1
+    pad=1
+    activation=leaky
+
+    [shortcut]
+    from=-3
+    activation=linear
+
+    [convolutional]
+    batch_normalize=1
+    filters=128
+    size=3
+    stride=2
+    pad=1
+    activation=leaky
+
+    [convolutional]
+    size=1
+    stride=1
+    pad=1
+    filters=preyolo
+    activation=linear
+
+    [yolo]
+    mask = 0,1,2
+    anchors = 10,13,  16,30,  33,23
+    classes=1
+    num=3
+""")
 
 
 def to_jnp(tree):
@@ -64,3 +143,44 @@ def gap_threshold(conf: np.ndarray, per_frame: float) -> float:
     flat = np.sort(conf.ravel())
     i = flat.size - int(per_frame * conf.shape[0])
     return float((flat[i - 1] + flat[i]) / 2)
+
+
+def entry_spec(directory):
+    """The ENTRY_CFG spec, written to a file in ``directory``."""
+    path = os.path.join(str(directory), "entry.cfg")
+    with open(path, "w") as f:
+        f.write(ENTRY_CFG)
+    return load_network_spec(path, vanilla_anchor=True)
+
+
+def to_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def int8_models(spec, frames, seed: int = 0, net_size: int = 16,
+                use_entry: bool = True):
+    """Both packages' int8 serving models from one numpy init: heads sliced
+    to one class, calibrated on ``frames`` (and seeded crops) and quantized
+    once in JAX, then carried to the port with ``quantized_from_jax``, so
+    both run on identical integers.
+
+    Returns ``(jax, port)``: ``jax = (spec', yolo_q, entry_q or None,
+    rekt_q)``, ``port = (Int8Darknet, Int8RektNet)``."""
+    rng = np.random.default_rng(seed)
+    yp, ys = convert.init_darknet_np(spec, rng)
+    rp, rs = convert.init_rektnet_np(rng, net_size=net_size)
+    jspec, jfolded = jslice_preyolo(
+        spec, jdarknet.fold_bn(to_jnp(yp), to_jnp(ys), spec))
+    jrekt = jrektnet.fold_bn(to_jnp(rp), to_jnp(rs))
+    amax = jquantize.calibrate(jspec, jfolded, jnp.asarray(frames, jnp.float32))
+    yolo_q = jquantize.quantize_params(jspec, jfolded, amax)
+    entry_q = jentry.quantize_entry(jfolded, amax) if use_entry else None
+    crops = rng.uniform(0, 1, (8, 80, 80, 3)).astype(np.float32)
+    rekt_q = jquantize.quantize_rektnet_params(
+        jrekt, jquantize.calibrate_rektnet(jrekt, jnp.asarray(crops)))
+    yolo = quantize.Int8Darknet(
+        jspec, convert.quantized_from_jax(to_numpy(yolo_q)),
+        None if entry_q is None else
+        convert.quantized_from_jax(to_numpy(entry_q)))
+    rekt = quantize.Int8RektNet(convert.quantized_from_jax(to_numpy(rekt_q)))
+    return (jspec, yolo_q, entry_q, rekt_q), (yolo, rekt)

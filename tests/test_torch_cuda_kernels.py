@@ -23,6 +23,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.models import (
     stem_opt,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_crop import roi_crop
+from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
     _torch_nms_topk,
     _torch_softargmax,
@@ -123,3 +124,66 @@ def test_tiny_pipeline_card_matches_cpu(cuda):
     assert torch.equal(out.mask.cpu(), ref.mask)
     torch.testing.assert_close(out.keypoints.cpu(), ref.keypoints,
                                rtol=1e-4, atol=1e-3)
+
+
+def _entry_bundle(cuda, seed: int):
+    """A seeded, packed K4 bundle (``quantize_entry`` on random folded
+    weights, then ``pack_entry``)."""
+    rng = np.random.default_rng(seed)
+
+    def conv(o, i, k):
+        return {"w": torch.from_numpy(rng.standard_normal((o, i, k, k))
+                                      .astype(np.float32) * 0.1),
+                "b": torch.from_numpy(rng.standard_normal(o)
+                                      .astype(np.float32) * 0.1)}
+
+    folded = {"0": conv(32, 3, 3), "1": conv(64, 32, 3), "2": conv(32, 64, 1),
+              "3": conv(64, 32, 3)}
+    ep = entry.quantize_entry(folded, {"0": 1.0, "1": 3.0, "2": 2.0,
+                                       "3": 2.5, "5": 4.0})
+    return {k: v.to(cuda) for k, v in entry.pack_entry(ep).items()}, rng
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 32, 48), (8, 208, 208)],
+                         ids=["small", "full"])
+def test_entry_block_bit_equal_to_plain(cuda, B, H, W):
+    """K4 against ``_entry_rest`` on the card: every int8 equal, at a small
+    non-square shape and at the main path's (8, 208, 208, 128)."""
+    ep, rng = _entry_bundle(cuda, 5)
+    frames = torch.from_numpy(rng.uniform(0, 1, (B, 2 * H, 2 * W, 3))
+                              .astype(np.float32)).to(cuda, torch.bfloat16)
+    hq = entry.conv1_4x4_q8(frames, ep, 0.1)
+    launches = entry.fused_entry_block.launches
+    got = entry.fused_entry_block(hq, ep, 0.1)
+    ref = entry._entry_rest(hq, ep, 0.1)
+    torch.cuda.synchronize()
+    assert entry.fused_entry_block.launches == launches + 1
+    assert got.shape == (B, H, W, 64) and got.dtype == torch.int8
+    assert torch.equal(got, ref)
+
+
+def test_entry_block_zero_padding_with_extreme_edges(cuda):
+    """±127 on every border row and column of hq: the conv2p pad (top and
+    left only) and the 3×3's zeros outside the frame must match the plain
+    version's padding exactly."""
+    ep, rng = _entry_bundle(cuda, 6)
+    hq = rng.integers(-10, 40, (3, 48, 32, 128), dtype=np.int8)
+    for edge in (np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
+        hq[edge] = rng.choice([-127, 127], hq[edge].shape).astype(np.int8)
+    hq = torch.from_numpy(hq).to(cuda)
+    got = entry.fused_entry_block(hq, ep, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, entry._entry_rest(hq, ep, 0.1))
+    cpu = {k: v.cpu() for k, v in ep.items()}
+    assert torch.equal(got.cpu(), entry._entry_rest(hq.cpu(), cpu, 0.1))
+
+
+def test_entry_block_rejects_bad_shapes(cuda):
+    ep, _ = _entry_bundle(cuda, 7)
+    with pytest.raises(ValueError):
+        entry.fused_entry_block(torch.zeros((1, 24, 32, 128), dtype=torch.int8,
+                                            device=cuda), ep, 0.1)
+    with pytest.raises(ValueError):
+        entry.fused_entry_block(torch.zeros((1, 32, 32, 128), dtype=torch.int8,
+                                            device=cuda),
+                                {**ep, "w2_k4": ep["w2_k4"].cpu()}, 0.1)

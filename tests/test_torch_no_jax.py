@@ -1,5 +1,6 @@
 """The PyTorch port never imports JAX: a fresh interpreter imports every
-module of the port and serves the tiny slice on the CPU."""
+module of the port and serves the tiny slice on the CPU, in f32 and in
+int8 (quantized by the port itself)."""
 
 import os
 import subprocess
@@ -16,7 +17,7 @@ for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
 from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
 from mit_driverless_cv_traininginfra_tpu_torch import _shared, convert
 from mit_driverless_cv_traininginfra_tpu_torch.infer.serving import TwoStageServer
-from mit_driverless_cv_traininginfra_tpu_torch.models import darknet, rektnet, stem_opt
+from mit_driverless_cv_traininginfra_tpu_torch.models import darknet, quantize, rektnet, stem_opt
 
 spec = load_network_spec("tests/fixtures/tiny_test.cfg", vanilla_anchor=True)
 rng = np.random.default_rng(0)
@@ -33,6 +34,18 @@ server.warmup([2], capacities=[8])
 out = server(frames)
 assert out.keypoints.shape == (2, 16, 7, 2), out.keypoints.shape
 assert server.stats()["calls"] == 1
+
+rfolded = rektnet.fold_bn(convert.from_jax(rp), convert.from_jax(rs))
+amax = quantize.calibrate(spec1, folded, frames)
+crops = rng.uniform(0, 1, (4, 80, 80, 3)).astype(np.float32)
+rq = quantize.quantize_rektnet_params(rfolded,
+                                      quantize.calibrate_rektnet(rfolded, crops))
+yolo_q = quantize.Int8Darknet(spec1, quantize.quantize_params(spec1, folded, amax))
+server = TwoStageServer(yolo_q, quantize.Int8RektNet(rq), conf_thresh=0.5,
+                        policy=_shared.capacity().AdaptiveCapacity(floor=8, quantum=8))
+server.warmup([2], capacities=[8])
+out = server(torch.from_numpy((frames * 255).astype(np.uint8)))
+assert out.keypoints.shape == (2, 16, 7, 2), out.keypoints.shape
 assert "jax" not in sys.modules, "the port imported jax"
 print("no-jax ok")
 """

@@ -122,8 +122,12 @@ def test_server_answers_and_counts(setup):
 
 
 def test_server_refuses_int8():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TwoStageServer(None, None, yolo_q={})
+    """The int8 configuration comes as models, ``Int8Darknet`` and
+    ``Int8RektNet`` (tests/test_torch_pipeline_int8.py): the server refuses
+    the JAX server's quantized bundles."""
+    for kw in ("yolo_q", "stem_q", "rekt_q", "entry_q"):
+        with pytest.raises(TypeError, match=kw):
+            TwoStageServer(None, None, **{kw: {}})
 
 
 def test_resolve_device_is_explicit():
