@@ -5,7 +5,9 @@
 
 Drives the port's main paths — the two-stage detect→crop→keypoints serving
 path at the full width of YOLOv3-416 and RektNet, in bf16/f32 and in its
-int8 configuration, on seeded random weights — and checks its hand-written
+int8 configuration; the int8 residual stage (K5) on the int8 forward's
+26² activations; RektNet training at full width (net_size 16, 80×80, 7
+keypoints, B=32) — on seeded random weights, and checks its hand-written
 CUDA kernels:
 
 1. device: requires CUDA (no CPU fallback); prints the card's name and
@@ -23,17 +25,31 @@ CUDA kernels:
    (8, 208, 208, 128), bit for bit, with its registers and timings; the
    int8 pipeline on the card against CPU copies (K4's output bit-equal,
    masks equal); then an int8 ``TwoStageServer`` whose K1-K4 launch
-   counters must all grow, with frames/s beside the bf16 server's.
+   counters must all grow, with frames/s beside the bf16 server's;
+6. K5: the int8 forward of the served frames up to the 26² stage (S=26,
+   C=512, n=8, B=8), then K5 against its plain version, every int8 and
+   bf16 equal, borders included; again at S=13 with ±127 at the borders;
+7. K2 backward against its plain version at (224, 80, 80), f32 and bf16,
+   with and without a probabilities' gradient;
+8. training: one f32 ``rektnet_train_step`` on the card against the CPU
+   from the same seeded parameters and batch (loss, updated parameters,
+   running stats); 20 bf16 and 20 f32 steps on the card (finite losses,
+   K2 forward and backward launched, ms per step); two epochs of the
+   training loop, whose ``.pt`` checkpoint is reloaded and compared.
 
 Prints one JSON line of per-kernel results before the last line, which is
-``{"ok": true, "device": {...}}``; each row's ``launches`` is counted over
-the int8 server's requests. Any failure raises: exit code ≠ 0 and no
-result line. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
+its own path's run (counters set to 0 just before it): K1-K4 over the
+int8 server's requests, K5 over its stage path, K2's backward over the
+training steps. ``bound_ms`` is the larger of the row's bytes over 3.35
+TB/s and its operations over the card's peak for their type. Any failure
+raises: exit code ≠ 0 and no result line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -51,7 +67,14 @@ KERNEL_ROWS = {  # name → (source, TPU kernel it replaces)
                  "mit_driverless_cv_traininginfra_tpu/ops/pallas_kernels.py:209"),
     "entry_block": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/entry_block.cu",
                     "mit_driverless_cv_traininginfra_tpu/ops/pallas_entry.py:337"),
+    "res_stage": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/res_stage.cu",
+                  "mit_driverless_cv_traininginfra_tpu/ops/pallas_resstage.py:224"),
+    "softargmax_bwd": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/softargmax.cu",
+                       "mit_driverless_cv_traininginfra_tpu/ops/pallas_kernels.py:295"),
 }
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
 B_SERVE, SIZE, MAX_DET = 8, 416, 16
 CROP_N = 64                  # crops per kernel check: a served capacity at B=8
 PTS_ATOL = {torch.float32: 1e-6, torch.bfloat16: 2e-3}
@@ -64,6 +87,19 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def bound(n_bytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak for their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(fn, iters: int = 50, warm: int = 5) -> float:
@@ -82,10 +118,11 @@ def cuda_ms(fn, iters: int = 50, warm: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel, plain) -> tuple[float, float]:
+def paired_ms(kernel, plain, iters: int = 50) -> tuple[float, float]:
     """(kernel ms, plain ms), each the mean of two runs in the order
     plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    p1, k1 = cuda_ms(plain, iters), cuda_ms(kernel, iters)
+    k2, p2 = cuda_ms(kernel, iters), cuda_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -174,8 +211,30 @@ def phase_k1(dev, rows: dict) -> None:
               f"K1 {dt} disagrees: {err}")
         errs.append(err)
         if dt == torch.bfloat16:
-            rows["roi_crop"].update(ms=k_ms, plain_ms=p_ms)
+            # bilinear: 4 taps, 4 products and 3 sums per output value
+            b = bound(nbytes(frames, boxes, fidx, got), 8 * got.numel(), "f32")
+            rows["roi_crop"].update(ms=k_ms, plain_ms=p_ms,
+                                    library_ms=grid_sample_ms(frames, boxes, fidx), **b)
     rows["roi_crop"]["max_abs_err"] = max(errs)
+
+
+def grid_sample_ms(frames, boxes, fidx, out: int = 80) -> float:
+    """ms of one ``F.grid_sample`` call that resamples the same boxes
+    bilinearly to out×out (its inputs — the crops' frames as NCHW and the
+    sampling grid — made beforehand): the library yardstick of K1."""
+    import torch.nn.functional as F
+
+    finite = torch.isfinite(boxes).all(dim=1)
+    bx = torch.where(finite[:, None], boxes, torch.zeros_like(boxes))
+    H, W = frames.shape[1], frames.shape[2]
+    t = (torch.arange(out, device=boxes.device, dtype=torch.float32) + 0.5) / out
+    gx = (bx[:, 0:1] + t * (bx[:, 2:3] - bx[:, 0:1])) / W * 2 - 1
+    gy = (bx[:, 1:2] + t * (bx[:, 3:4] - bx[:, 1:2])) / H * 2 - 1
+    grid = torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]), -1)
+    inp = frames[fidx].permute(0, 3, 1, 2)
+    grid = grid.to(frames.dtype)
+    return cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                         align_corners=False))
 
 
 def phase_k2(dev, rows: dict) -> None:
@@ -205,7 +264,9 @@ def phase_k2(dev, rows: dict) -> None:
         check(e_pts <= PTS_ATOL[dt] and pr_ok, f"K2 {dt} disagrees")
         errs.append(e_pts)
         if dt == torch.bfloat16:
-            rows["softargmax"].update(ms=k_ms, plain_ms=p_ms)
+            # max, exp, sum, divide, two products and two sums per value
+            b = bound(nbytes(z, probs, pts), 8 * z.numel(), "f32")
+            rows["softargmax"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **b)
     rows["softargmax"]["max_abs_err"] = max(errs)
 
 
@@ -256,7 +317,10 @@ def phase_k3(dev, rows: dict) -> None:
         check(same, f"K3 {dt}: slots differ from the plain version")
         errs.append(err)
         if dt == torch.float32:
-            rows["nms_topk"].update(ms=k_ms, plain_ms=p_ms)
+            # a threshold compare per candidate, ~20 operations per IoU pair
+            bd = bound(nbytes(b, s, *got, idx), B_SERVE * N + 20 * B_SERVE * MAX_DET ** 2,
+                       "f32")
+            rows["nms_topk"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **bd)
     rows["nms_topk"]["max_abs_err"] = max(errs)
 
 
@@ -268,8 +332,10 @@ def phase_k3(dev, rows: dict) -> None:
 def seeded_folded(dev):
     """The seeded YOLOv3-416 (heads sliced to one class) and RektNet-16,
     BN folded, f32 on ``dev``: ``(spec, darknet folded, rektnet folded)``."""
-    from mit_driverless_cv_traininginfra_tpu.config.flagship import flagship_spec
     from mit_driverless_cv_traininginfra_tpu_torch import convert
+    from mit_driverless_cv_traininginfra_tpu_torch.config.flagship import (
+        flagship_spec,
+    )
     from mit_driverless_cv_traininginfra_tpu_torch.models import (
         darknet,
         rektnet,
@@ -368,12 +434,14 @@ def serve(label: str, yolo, rekt, frames, thresh, smi, n_full: int = 63):
     a short batch of 6 that pads and ``n_full`` full batches. Every kernel
     counter is set to 0 just before the requests and read just after.
     Returns ``(launches, frames/s)``."""
-    from mit_driverless_cv_traininginfra_tpu_torch import _shared
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.capacity import (
+        AdaptiveCapacity,
+    )
     from mit_driverless_cv_traininginfra_tpu_torch.infer.serving import (
         TwoStageServer,
     )
 
-    policy = _shared.capacity().AdaptiveCapacity(floor=64, quantum=16,
+    policy = AdaptiveCapacity(floor=64, quantum=16,
                                                  warmup_capacity=96)
     server = TwoStageServer(yolo, rekt, conf_thresh=thresh, max_det=MAX_DET,
                             policy=policy)
@@ -433,14 +501,14 @@ def quantize_on_card(dev, frames_np):
     """Calibrate and quantize the seeded models as bench.py does: the f32
     folded Darknet on the 8 frames, RektNet on 32 synthetic cone crops.
     Returns ``(spec, yolo_q, entry_q, rekt_q)``, tensors on ``dev``."""
-    from mit_driverless_cv_traininginfra_tpu_torch import _shared
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
     from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
     from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
 
     spec1, folded1, rfolded = seeded_folded(dev)
     check(entry.entry_block_applicable(spec1), "YOLOv3-416 takes no fused entry")
     amax = quantize.calibrate(spec1, folded1, torch.from_numpy(frames_np).to(dev))
-    crops, _ = _shared.synthetic().rektnet_batch(np.random.default_rng(3), 32)
+    crops, _ = synthetic.rektnet_batch(np.random.default_rng(3), 32)
     ramax = quantize.calibrate_rektnet(rfolded, np.asarray(crops, np.float32))
     return (spec1, quantize.quantize_params(spec1, folded1, amax),
             entry.quantize_entry(folded1, amax),
@@ -508,7 +576,13 @@ def phase_k4(dev, rows: dict, entry_q, frames_np) -> None:
         f"differing={n_diff}/{got.numel()} (edges ±127: {n_diff_e}) "
         f"kernel {k_ms!r} ms plain {p_ms!r} ms")
     check(n_diff == 0 and n_diff_e == 0, "K4 differs from its plain version")
-    rows["entry_block"].update(ms=k_ms, plain_ms=p_ms,
+    # int8 multiply-adds per output position: conv2p 4·128·64, 1×1 64·32,
+    # 3×3 9·32·64
+    ops = 2 * B_SERVE * (SIZE // 2) ** 2 * (4 * 128 * 64 + 64 * 32 + 9 * 32 * 64)
+    b = bound(nbytes(hq, got, ep["w2_k4"], ep["w1x1_k4"], ep["w3_k4"]), ops, "int8")
+    log(f"K4 bound {b['bound_ms']!r} ms ({b['bound_by']}), "
+        f"{ops / k_ms / 1e9:.1f} TOP/s")
+    rows["entry_block"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **b,
                                max_abs_err=max(max_abs(got, ref), max_abs(got_e, ref_e)))
 
 
@@ -573,6 +647,317 @@ def phase_serve_int8(yolo, rekt, frames_np, thresh, smi):
     return launches, fps
 
 
+# ---------------------------------------------------------------------------
+# phase 6: K5, the int8 residual stage
+# ---------------------------------------------------------------------------
+
+K5_C = 512  # the 26² stage of YOLOv3-416: S=26, C=512, n=8
+
+
+def k5_setup(spec1, yolo_q):
+    """The C=512 stage's span and its packed bundle from the int8 leaves:
+    ``(start, n_blocks, pk)``."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import resstage
+
+    start, nb, _ = next(sp for sp in resstage.res_stage_spans(spec1)
+                        if sp[2] == K5_C)
+    rs = resstage.quantize_res_stage(yolo_q, start, nb, start + 3 * nb)
+    return start, nb, resstage.pack_res_stage(rs)
+
+
+def k5_path(yolo, frames, start: int, nb: int, pk):
+    """K5's main path (``tools/bench_resstage.py``): the int8 forward up to
+    block ``start − 1``, then the stage. Returns ``(x, x_flat, yq, ybf)``."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import resstage
+
+    with torch.inference_mode():
+        x = yolo.truncated_forward(frames, start - 1)
+        xf = resstage.res_stage_pre(x)
+        yq, ybf = resstage.fused_res_stage(xf, pk, x.shape[1], nb, SLOPE)
+    return x, xf, yq, ybf
+
+
+def bits_differ(a, b) -> int:
+    """Elements whose bits differ (a bf16 −0 differs from +0)."""
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return int((a != b).sum())
+
+
+def k5_compare(xf, pk, S: int, nb: int, got) -> tuple[int, int, bool]:
+    """(yq differing, ybf differing, borders zero) of K5's ``got`` against
+    the plain version on the same input."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import resstage
+
+    ref = resstage._res_stage_plain(xf, pk, S, nb, SLOPE)
+    torch.cuda.synchronize()
+    B = xf.shape[0] // ((S + 2) ** 2)
+    zero = True
+    for t in got:
+        m = resstage.res_stage_post(t, B, S)
+        zero &= all(bool((e == 0).all()) for e in (m[:, 0], m[:, -1], m[:, :, 0], m[:, :, -1]))
+    return bits_differ(got[0], ref[0]), bits_differ(got[1], ref[1]), zero
+
+
+def phase_k5(dev, rows: dict, bundles, yolo, frames_np) -> None:
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import resstage
+
+    start, nb, pk = k5_setup(bundles[0], bundles[1])
+    frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
+    resstage.fused_res_stage.launches = 0
+    x, xf, yq, ybf = k5_path(yolo, frames, start, nb, pk)
+    torch.cuda.synchronize()
+    launches = resstage.fused_res_stage.launches
+    B, S, _, C = x.shape
+    check((B, S, C, nb) == (B_SERVE, 26, K5_C, 8), f"K5 stage {(B, S, C, nb)}")
+    dq, db, zero = k5_compare(xf, pk, S, nb, (yq, ybf))
+    # another S (13: 169 positions, not a multiple of the 64-position
+    # tile) with values quantizing to ±127 on every border row and column
+    rng = np.random.default_rng(6)
+    big = 2.0 * 127.0 / float(pk["sx1"][0])
+    xe = torch.from_numpy(rng.normal(0, float(x.float().std()), (3, 13, 13, C))
+                          .astype(np.float32)).to(dev)
+    sign = torch.from_numpy(rng.choice([-big, big], (4, 3, 13, C)).astype(np.float32)).to(dev)
+    xe[:, 0], xe[:, -1], xe[:, :, 0], xe[:, :, -1] = sign
+    xef = resstage.res_stage_pre(xe)
+    dq_e, db_e, zero_e = k5_compare(xef, pk, 13, nb,
+                                    resstage.fused_res_stage(xef, pk, 13, nb, SLOPE))
+    k_ms, p_ms = paired_ms(lambda: resstage.fused_res_stage(xf, pk, S, nb, SLOPE),
+                           lambda: resstage._res_stage_plain(xf, pk, S, nb, SLOPE),
+                           iters=10)
+    for kern in ("conv1x1_kernel", "conv3x3_kernel"):
+        for line in ptxas_lines(kern):
+            log(f"K5 ptxas {kern}: {line}")
+    ops = 2 * B * S * S * nb * (C * (C // 2) + 9 * (C // 2) * C)
+    b = bound(nbytes(xf, pk["w1_k"], pk["w3_k"], yq, ybf), ops, "int8")
+    log(f"K5 res_stage int8: stage input {tuple(x.shape)} (blocks {start}-"
+        f"{start + 3 * nb - 1}), n={nb}: yq differing {dq}/{yq.numel()}, ybf "
+        f"differing {db}/{ybf.numel()}, borders zero {zero}; S=13 with ±127 "
+        f"borders: {dq_e}, {db_e}, {zero_e}; kernel {k_ms!r} ms plain {p_ms!r} "
+        f"ms; {ops / 1e9:.1f} G int8 ops = {ops / k_ms / 1e9:.1f} TOP/s; bound "
+        f"{b['bound_ms']!r} ms ({b['bound_by']}); launches {launches}")
+    check(dq == db == dq_e == db_e == 0 and zero and zero_e,
+          "K5 differs from its plain version")
+    check(launches == 1, f"K5's path launched it {launches} times")
+    rows["res_stage"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0,
+                             launches=launches, library_ms=None, **b)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: K2's backward
+# ---------------------------------------------------------------------------
+
+
+def phase_k2_bwd(dev, rows: dict) -> None:
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
+        _torch_softargmax,
+        _torch_softargmax_bwd,
+        softargmax_bwd,
+    )
+
+    rng = np.random.default_rng(7)
+    m = 7 * 32  # a training batch of 32 crops
+    z32 = torch.from_numpy(rng.normal(0, 3, (m, 80, 80)).astype(np.float32)).to(dev)
+    g_pts = torch.from_numpy(rng.normal(0, 1, (m, 2)).astype(np.float32)).to(dev)
+    g_pr32 = torch.from_numpy(rng.normal(0, 1e-2, (m, 80, 80)).astype(np.float32)).to(dev)
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        _, probs = _torch_softargmax(z32.to(dt))
+        for g_probs in (g_pr32.to(dt), None):
+            got = softargmax_bwd(probs, g_pts, g_probs)
+            ref = _torch_softargmax_bwd(probs, g_pts, g_probs)
+            torch.cuda.synchronize()
+            d = (got.float() - ref.float()).abs()
+            scale = float(ref.float().abs().max())
+            # dz = p·(gp − s): the row sum s is taken in another order
+            # (a block reduction against torch's), which moves dz by p·Δs,
+            # within 1e-5 of the row's largest |dz|; bf16 also rounds the
+            # result, one bf16 ulp (2^-7 relative) where Δs crosses a
+            # rounding boundary
+            rtol = 0.0 if dt == torch.float32 else 2 ** -7
+            ok = bool((d <= 1e-5 * scale + rtol * ref.float().abs()).all())
+            log(f"K2-bwd softargmax_bwd {str(dt)[6:]} g_probs "
+                f"{'given' if g_probs is not None else 'None'}: M={m} max|d|="
+                f"{float(d.max())!r} (max|dz| {scale!r})")
+            check(ok, f"K2-bwd {dt} disagrees")
+            errs.append(float(d.max()))
+        if dt == torch.bfloat16:  # the training path's case: bf16, no g_probs
+            k_ms, p_ms = paired_ms(lambda: softargmax_bwd(probs, g_pts),
+                                   lambda: _torch_softargmax_bwd(probs, g_pts))
+            log(f"K2-bwd bf16: kernel {k_ms!r} ms plain {p_ms!r} ms")
+            b = bound(nbytes(probs, g_pts, probs), 8 * probs.numel(), "f32")
+            rows["softargmax_bwd"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **b)
+    rows["softargmax_bwd"]["max_abs_err"] = max(errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: RektNet training
+# ---------------------------------------------------------------------------
+
+TRAIN_B = 32
+TRAIN_KW = dict(loss_type="l1_softargmax", include_geo=True,
+                geo_loss_gamma_horz=0.05, geo_loss_gamma_vert=0.05,
+                synth_target_sigma=1.0)
+
+
+def rekt_trees(seed: int = 1):
+    from mit_driverless_cv_traininginfra_tpu_torch.models import rektnet
+
+    return rektnet.init(torch.Generator().manual_seed(seed))
+
+
+def rekt_batch(dev, seed: int, n: int = TRAIN_B):
+    """n synthetic cone crops and their keypoints on ``dev``."""
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
+
+    crops, pts = synthetic.rektnet_batch(np.random.default_rng(seed), n)
+    return torch.from_numpy(crops).to(dev), torch.from_numpy(pts).to(dev)
+
+
+def phase_train_agree(dev) -> None:
+    """One f32 train step from the same seeded parameters and batch on the
+    card and on the CPU. SGD, so the update is linear in the gradient
+    (Adam's first step is lr·sign(g), and the pre-BN conv biases, whose
+    true gradient is 0, carry gradients of rounding noise whose sign it
+    would turn into ±lr)."""
+    from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import KeypointNet
+    from mit_driverless_cv_traininginfra_tpu_torch.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra_tpu_torch.train.steps import rektnet_train_step
+
+    params, state = rekt_trees()
+    out = {}
+    for d in ("cpu", dev):
+        model = KeypointNet(params, state).to(d)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        opt = make_optimizer(model.parameters(), "SGD", lr=0.01, momentum=0.9)
+        imgs, pts = rekt_batch(d, 8)
+        t0 = time.perf_counter()
+        total, loc, geo = rektnet_train_step(model, opt, imgs, None, pts,
+                                             compute_dtype="float32", **TRAIN_KW)
+        loss = float(total)
+        log(f"train f32 step on {d}: loss {loss!r} (location {float(loc)!r}, geo "
+            f"{float(geo)!r}) in {time.perf_counter() - t0:.2f} s")
+        out[str(d)] = (loss, before, {k: v.cpu() for k, v in model.state_dict().items()})
+    (l_cpu, before, sd_cpu), (l_card, _, sd_card) = out["cpu"], out[str(dev)]
+    names = {n for n, _ in KeypointNet(params, state).named_parameters()}
+    upd_cpu = {k: v - before[k] for k, v in sd_cpu.items() if k in names}
+    scale = max(float(u.abs().max()) for u in upd_cpu.values())
+    # the SGD update −lr·g: f32 gradients through five BN layers are
+    # ill-conditioned sums (on the CPU both the port and the JAX package sit
+    # up to ~5e-4 of the largest gradient from a float64 evaluation), so
+    # each update is held to 1e-3 of the largest update of any parameter.
+    # (The pre-BN conv biases have a true gradient of 0; theirs is noise.)
+    worst_upd, worst_name = max(
+        (float((sd_card[k] - before[k] - u).abs().max()) / scale, k)
+        for k, u in upd_cpu.items())
+    # batch statistics of f32 activations summed in other orders (cuDNN,
+    # oneDNN): 1e-4 of each statistic's scale
+    worst_stat = max(float((sd_card[k] - v).abs().max() / v.abs().max().clamp_min(1e-12))
+                     for k, v in sd_cpu.items()
+                     if k.endswith(("running_mean", "running_var")))
+    log(f"train f32 card vs CPU: loss {l_card!r} vs {l_cpu!r}; worst update "
+        f"{worst_upd!r} of the largest ({worst_name}), worst running stat "
+        f"{worst_stat!r} of its scale")
+    check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), "train f32: loss differs")
+    check(worst_upd <= 1e-3, "train f32: parameter updates differ")
+    check(worst_stat <= 1e-4, "train f32: running stats differ")
+
+
+def phase_train_card(dev, smi, rows: dict) -> dict:
+    """20 bf16 and 20 f32 Adam steps at B=32 on the card. Counters are set
+    to 0 just before the steps and read just after."""
+    from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import KeypointNet
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
+        fused_softargmax,
+        softargmax_bwd,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra_tpu_torch.train.steps import rektnet_train_step
+
+    imgs, pts = rekt_batch(dev, 9)
+    models = {}
+    for dt in ("bfloat16", "float32"):
+        model = KeypointNet(*rekt_trees()).to(dev)
+        opt = make_optimizer(model.parameters(), "Adam", lr=1e-3)
+        rektnet_train_step(model, opt, imgs, None, pts, compute_dtype=dt, **TRAIN_KW)
+        models[dt] = (model, opt)  # one warm step each: cuDNN meets every shape
+    torch.cuda.synchronize()
+    fused_softargmax.launches = softargmax_bwd.launches = 0
+    for dt, (model, opt) in models.items():
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(20):
+            losses.append(rektnet_train_step(model, opt, imgs, None, pts,
+                                             compute_dtype=dt, **TRAIN_KW)[0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 20
+        losses = torch.stack(losses).cpu()
+        log(f"train {dt} B={TRAIN_B}: 20 steps, {ms!r} ms/step = "
+            f"{TRAIN_B * 1e3 / ms!r} crops/s, loss {float(losses[0])!r} → "
+            f"{float(losses[-1])!r} on {smi}")
+        check(bool(torch.isfinite(losses).all()), f"train {dt}: non-finite loss")
+    launches = {"softargmax": fused_softargmax.launches,
+                "softargmax_bwd": softargmax_bwd.launches}
+    log(f"train launches over the 40 steps: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a K2 kernel never launched while training: {launches}")
+    rows["softargmax_bwd"]["launches"] = launches["softargmax_bwd"]
+    return launches
+
+
+def phase_driver(dev) -> None:
+    """Two epochs of the training loop over in-memory synthetic loaders;
+    the ``.pt`` it writes is reloaded and compared."""
+    import glob
+    import tempfile
+
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
+    from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import KeypointNet
+    from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import (
+        load_rektnet_pt,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra_tpu_torch.train.rektnet_driver import (
+        train_rektnet,
+    )
+
+    def loader(seed: int, n_batches: int):
+        rng = np.random.default_rng(seed)
+        out = []
+        for _ in range(n_batches):
+            crops, pts = synthetic.rektnet_batch(rng, TRAIN_B)
+            out.append((crops, np.zeros((TRAIN_B, 7, 1, 1), np.float32), pts,
+                        [f"crop{i}" for i in range(TRAIN_B)], [(80, 80, 3)] * TRAIN_B))
+        return out
+
+    train, val = loader(10, 3), loader(11, 1)
+    model = KeypointNet(*rekt_trees(2)).to(dev)
+    opt = make_optimizer(model.parameters(), "Adam", lr=1e-3)
+    with tempfile.TemporaryDirectory() as tmp:
+        best, best_epoch, last = train_rektnet(
+            model, opt, train, val, device=dev, output_path=tmp, num_epochs=2,
+            lr=1e-3, include_geo=True, geo_loss_gamma_horz=0.05,
+            geo_loss_gamma_vert=0.05, mixed_precision=True, device_targets=True,
+            checkpoint_interval=2, log_dir=tmp)
+        pts_files = glob.glob(f"{tmp}/*.pt")
+        check(len(pts_files) == 1, f"driver: expected one .pt, got {pts_files}")
+        model2 = KeypointNet(*rekt_trees(3)).to(dev)
+        opt2 = make_optimizer(model2.parameters(), "Adam", lr=1.0)
+        epoch = load_rektnet_pt(pts_files[0], model2, opt2)
+    same_model = all(torch.equal(v, model2.state_dict()[k])
+                     for k, v in model.state_dict().items())
+    s1, s2 = opt.state_dict(), opt2.state_dict()
+    same_opt = (s1["param_groups"][0]["lr"] == s2["param_groups"][0]["lr"] and all(
+        torch.equal(s1["state"][i][k].cpu(), s2["state"][i][k].cpu())
+        for i in s1["state"] for k in ("exp_avg", "exp_avg_sq", "step")))
+    log(f"driver: 2 epochs, best validation loss {best!r} at epoch {best_epoch}, "
+        f"last epoch {last}; {pts_files[0].rsplit('/', 1)[-1]} reloaded: epoch "
+        f"{epoch}, model equal {same_model}, Adam state equal {same_opt}")
+    check(math.isfinite(best) and last == 1 and epoch == 1,
+          "driver: the loop did not run its two epochs")
+    check(same_model and same_opt, "driver: the reloaded checkpoint differs")
+
+
 def main() -> int:
     # the port first: without the repository around it, fail before any output
     from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
@@ -590,10 +975,9 @@ def main() -> int:
     phase_k2(dev, rows)
     phase_k3(dev, rows)
 
-    from mit_driverless_cv_traininginfra_tpu_torch import _shared
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
 
-    frames_np, _ = _shared.synthetic().yolo_batch(np.random.default_rng(42),
-                                                  B_SERVE, SIZE)
+    frames_np, _ = synthetic.yolo_batch(np.random.default_rng(42), B_SERVE, SIZE)
     thresh = phase_slice_f32(dev, frames_np)
     fps_bf16 = phase_serve_bf16(dev, frames_np, thresh, smi)
     bundles = quantize_on_card(dev, frames_np)
@@ -602,9 +986,18 @@ def main() -> int:
     launches, fps_int8 = phase_serve_int8(yolo_q, rekt_q, frames_np, thresh_q, smi)
     log(f"served frames/s at B={B_SERVE}: int8 {fps_int8!r}, bf16 {fps_bf16!r}, "
         f"int8/bf16 {fps_int8 / fps_bf16!r} on {smi}")
-    for name, row in rows.items():
-        row["launches"] = launches[name]
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    phase_k5(dev, rows, bundles, yolo_q, frames_np)
+    phase_k2_bwd(dev, rows)
+    phase_train_agree(dev)
+    phase_train_card(dev, smi, rows)
+    phase_driver(dev)
     check("jax" not in sys.modules, "jax was imported")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    check(all(set(r) == set(keys) for r in rows.values()),
+          f"a kernel row lacks a key: {[sorted(r) for r in rows.values()]}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
     ConvBlock,
     NetworkSpec,
     ShortcutBlock,

@@ -8,7 +8,7 @@ the models it is given are, and owns what a serving process needs around
 the pipeline:
 
 - the ``AdaptiveCapacity`` policy (p99-margin crop capacity with shrink
-  hysteresis, quantised into a few buckets), shared with the JAX package;
+  hysteresis, quantised into a few buckets), ``infer/capacity.py``;
 - ``warmup()``, which runs each (batch, capacity) bucket once on zero
   frames in the detector's ``frame_dtype`` (bf16 for int8) before
   serving, so the kernels are built and cuDNN has met every shape;
@@ -46,7 +46,9 @@ from typing import Iterable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from mit_driverless_cv_traininginfra_tpu_torch import _shared
+from mit_driverless_cv_traininginfra_tpu_torch.infer.capacity import (
+    AdaptiveCapacity,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
     PipelineOut,
     two_stage_pipeline,
@@ -85,7 +87,7 @@ class TwoStageServer:
         self.conf_thresh = conf_thresh
         self.nms_thresh = nms_thresh
         self.max_det = max_det
-        self.policy = policy or _shared.capacity().AdaptiveCapacity()
+        self.policy = policy or AdaptiveCapacity()
         self.observe_every = max(1, observe_every)
         self.calls = 0
         self.current_capacity: Optional[int] = None

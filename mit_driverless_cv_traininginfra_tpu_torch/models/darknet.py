@@ -1,13 +1,14 @@
 """Spec-driven Darknet/YOLOv3 — eval-mode inference on BN-folded weights
 (counterpart of the JAX package's ``models/darknet.py``).
 
-The graph comes from the JAX package's frozen ``NetworkSpec`` (its config
-modules are jax-free and imported as they are). Parameter trees mirror the
-JAX package's with OIHW weights: ``{"<block index>": {"w", "bn": {"scale",
-"bias"}}}`` for BN convs and ``{"w", "b"}`` for the linear pre-yolo convs,
-plus a state tree of BN running ``{"mean", "var"}``. :func:`fold_bn` folds
-them; :class:`Darknet` runs the folded graph. Frames, activations and head
-outputs are NHWC; each convolution views its input as NCHW (channels_last).
+The graph comes from the port's frozen ``NetworkSpec``
+(``config/darknet_cfg.py``, a copy of the JAX package's parser). Parameter
+trees mirror the JAX package's with OIHW weights: ``{"<block index>":
+{"w", "bn": {"scale", "bias"}}}`` for BN convs and ``{"w", "b"}`` for the
+linear pre-yolo convs, plus a state tree of BN running ``{"mean",
+"var"}``. :func:`fold_bn` folds them; :class:`Darknet` runs the folded
+graph. Frames, activations and head outputs are NHWC; each convolution
+views its input as NCHW (channels_last).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
     ConvBlock,
     MaxPoolBlock,
     NetworkSpec,
@@ -155,10 +156,26 @@ class YoloHeads(nn.Module):
     def forward_features(self, x):
         """x (B, H, W, C) → raw pre-yolo maps, one per yolo head, each
         NHWC (B, h, w, A·(5+C))."""
+        return self._walk(x, len(self.spec.blocks))[1]
+
+    def truncated_forward(self, x, stop: int):
+        """The walk cut after block ``stop`` (inclusive): that block's NHWC
+        output, e.g. the input of a residual stage (the JAX package's
+        ``tools/profile_detect.py:truncated_forward``)."""
+        x, _ = self._walk(x, stop + 1)
+        return x
+
+    def _walk(self, x, end: int):
+        """Blocks up to ``end`` (exclusive) → (last activation, pre-yolo
+        maps met so far)."""
         slope = self.spec.net.leaky_slope
         x, layer_outputs = self._enter(x)
+        if end < len(layer_outputs):
+            raise ValueError(f"the walk starts after block "
+                             f"{len(layer_outputs) - 1}; cannot stop at "
+                             f"block {end - 1}")
         outputs = []
-        for i in range(len(layer_outputs), len(self.spec.blocks)):
+        for i in range(len(layer_outputs), end):
             b = self.spec.blocks[i]
             if isinstance(b, ConvBlock):
                 x = self._conv(i, x)
@@ -178,7 +195,7 @@ class YoloHeads(nn.Module):
             elif isinstance(b, YoloBlock):
                 outputs.append(x)
             layer_outputs.append(x)
-        return outputs
+        return x, outputs
 
     def detections(self, x, with_classes: bool = True):
         """Full eval forward: per-head decodes concatenated along the box

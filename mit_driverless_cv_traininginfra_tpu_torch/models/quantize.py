@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
     ConvBlock,
     NetworkSpec,
 )

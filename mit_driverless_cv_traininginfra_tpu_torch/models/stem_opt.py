@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from mit_driverless_cv_traininginfra_tpu.config.darknet_cfg import (
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
     ConvBlock,
     NetworkSpec,
 )

@@ -51,6 +51,11 @@ SIGNATURES = {
     # w3_b, sx, out, B, H, W, slope, dtype, stream
     "mdcv_entry_block": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _F, _I, _P),
+    # x, w1, s1, b1, w3, s3, b3, sx1, sx3, sx_out, ybf, yq, tq,
+    # B, S, C, n_blocks, slope, dtype, stream
+    "mdcv_res_stage": (_P,) * 13 + (_I, _I, _I, _I, _F, _I, _P),
+    # probs, g_probs (or null), g_pts, xv, yv, dz, M, HW, dtype, stream
+    "mdcv_softargmax_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 # each kernel checks the code it is given and refuses the others

@@ -1,5 +1,5 @@
-"""K2 (soft-argmax) and K3 (threshold + top-k + NMS) — counterpart of the
-JAX package's ``ops/pallas_kernels.py``.
+"""K2 (soft-argmax, forward and backward) and K3 (threshold + top-k +
+NMS) — counterpart of the JAX package's ``ops/pallas_kernels.py``.
 
 Each wrapper launches its CUDA kernel (``csrc/softargmax.cu``,
 ``csrc/nms_topk.cu``) for CUDA tensors and takes its plain PyTorch version
@@ -65,12 +65,8 @@ def _torch_softargmax(logits):
     return pts, p.reshape(m, h, w).to(logits.dtype)
 
 
-def fused_softargmax(logits):
-    """(M, H, W) heatmap logits → (points (M, 2) f32, probs (M, H, W)).
-    CUDA kernel for CUDA tensors, :func:`_torch_softargmax` for CPU ones.
-    Forward only: the training backward lands with RektNet training."""
-    if not logits.is_cuda:
-        return _torch_softargmax(logits)
+def _cuda_softargmax(logits):
+    """K2 forward launch: the outputs of :func:`_torch_softargmax`."""
     m, h, w = logits.shape
     code = _lib.dtype_code(logits.dtype)
     z = logits.contiguous()
@@ -84,6 +80,85 @@ def fused_softargmax(logits):
     _lib.check(rc, "softargmax")
     fused_softargmax.launches += 1
     return pts, probs
+
+
+def _torch_softargmax_bwd(probs, g_pts, g_probs=None):
+    """Plain version of K2's backward, the JAX package's ``_bwd``: with
+    ``gp = g_probs + g_x·xv + g_y·yv`` per row of the saved ``probs``,
+    ``dz = p·(gp − Σ gp·p)`` in f32, returned in the probs' dtype. A
+    missing ``g_probs`` counts as zeros."""
+    m, h, w = probs.shape
+    p = probs.reshape(m, h * w).float()
+    xv, yv = _coord_rows(h, w, probs.device)
+    gp = g_pts[:, 0:1].float() * xv + g_pts[:, 1:2].float() * yv
+    if g_probs is not None:
+        gp = g_probs.reshape(m, h * w).float() + gp
+    dz = p * (gp - (gp * p).sum(dim=1, keepdim=True))
+    return dz.reshape(m, h, w).to(probs.dtype)
+
+
+def softargmax_bwd(probs, g_pts, g_probs=None):
+    """K2's backward: the logits' gradient from the saved ``probs`` (M, H,
+    W), the points' gradient ``g_pts`` (M, 2) and the probabilities'
+    gradient ``g_probs`` (M, H, W) or None. CUDA kernel for CUDA tensors,
+    :func:`_torch_softargmax_bwd` for CPU ones."""
+    if not probs.is_cuda:
+        return _torch_softargmax_bwd(probs, g_pts, g_probs)
+    m, h, w = probs.shape
+    code = _lib.dtype_code(probs.dtype)
+    p = probs.contiguous()
+    gpts = g_pts.float().contiguous()
+    gpr = None if g_probs is None else g_probs.to(p.dtype).contiguous()
+    if gpts.shape != (m, 2) or (gpr is not None and gpr.shape != p.shape):
+        raise ValueError(f"gradients {tuple(gpts.shape)}, "
+                         f"{None if gpr is None else tuple(gpr.shape)} do not "
+                         f"fit probs {tuple(p.shape)}")
+    xv, yv = _coord_rows(h, w, probs.device)
+    dz = torch.empty_like(p)
+    with torch.cuda.device(probs.device):
+        rc = _lib.lib().mdcv_softargmax_bwd(
+            p.data_ptr(), None if gpr is None else gpr.data_ptr(),
+            gpts.data_ptr(), xv.data_ptr(), yv.data_ptr(), dz.data_ptr(), m,
+            h * w, code, _lib.stream_ptr(probs.device))
+    _lib.check(rc, "softargmax_bwd")
+    softargmax_bwd.launches += 1
+    return dz
+
+
+softargmax_bwd.launches = 0
+
+
+class _SoftArgmax(torch.autograd.Function):
+    """K2 with its gradient (the JAX package's custom VJP): the forward
+    saves ``probs`` in the logits' dtype, the backward is
+    :func:`softargmax_bwd` on both devices."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        pts, probs = (_cuda_softargmax(logits) if logits.is_cuda
+                      else _torch_softargmax(logits))
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(probs)
+        return pts, probs
+
+    @staticmethod
+    def backward(ctx, g_pts, g_probs):
+        (probs,) = ctx.saved_tensors
+        if g_pts is None:
+            g_pts = probs.new_zeros((probs.shape[0], 2), dtype=torch.float32)
+        return softargmax_bwd(probs, g_pts, g_probs)
+
+
+def fused_softargmax(logits):
+    """(M, H, W) heatmap logits → (points (M, 2) f32, probs (M, H, W)).
+    CUDA kernel for CUDA tensors, :func:`_torch_softargmax` for CPU ones;
+    where a gradient is wanted, through :class:`_SoftArgmax`, whose
+    backward is :func:`softargmax_bwd`."""
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _SoftArgmax.apply(logits)
+    if logits.is_cuda:
+        return _cuda_softargmax(logits)
+    return _torch_softargmax(logits)
 
 
 fused_softargmax.launches = 0

@@ -29,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 import chip_smoke as cs  # noqa: E402
-from mit_driverless_cv_traininginfra_tpu_torch import _shared  # noqa: E402
+from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic  # noqa: E402
 from mit_driverless_cv_traininginfra_tpu_torch.infer import pipeline as pl  # noqa: E402
 from mit_driverless_cv_traininginfra_tpu_torch.models import quantize as qz  # noqa: E402
 
@@ -64,8 +64,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cs.phase_build()
-    frames_np, _ = _shared.synthetic().yolo_batch(np.random.default_rng(42),
-                                                  cs.B_SERVE, cs.SIZE)
+    frames_np, _ = synthetic.yolo_batch(np.random.default_rng(42), cs.B_SERVE, cs.SIZE)
     yolo, rekt = cs.int8_models(cs.quantize_on_card(dev, frames_np), dev)
     frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
     crops = torch.rand((112, 80, 80, 3), device=dev).to(torch.bfloat16)

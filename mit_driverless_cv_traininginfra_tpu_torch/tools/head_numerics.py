@@ -28,7 +28,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 import chip_smoke as cs  # noqa: E402
-from mit_driverless_cv_traininginfra_tpu_torch import _shared  # noqa: E402
+from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic  # noqa: E402
 from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (  # noqa: E402
     two_stage_pipeline,
 )
@@ -87,8 +87,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cs.phase_build()
     print(f"card: {smi}", flush=True)
-    frames_np, _ = _shared.synthetic().yolo_batch(np.random.default_rng(42),
-                                                  cs.B_SERVE, cs.SIZE)
+    frames_np, _ = synthetic.yolo_batch(np.random.default_rng(42), cs.B_SERVE, cs.SIZE)
     bundles = cs.quantize_on_card(dev, frames_np)
     yolo, rekt = cs.int8_models(bundles, dev)
     cpu = (bundles[0], *(cs.tree_to(b, "cpu") for b in bundles[1:]))

@@ -35,7 +35,10 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 import chip_smoke as cs  # noqa: E402
-from mit_driverless_cv_traininginfra_tpu_torch import _shared  # noqa: E402
+from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic  # noqa: E402
+from mit_driverless_cv_traininginfra_tpu_torch.infer.capacity import (  # noqa: E402
+    AdaptiveCapacity,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.infer import pipeline as pl  # noqa: E402
 from mit_driverless_cv_traininginfra_tpu_torch.infer.serving import (  # noqa: E402
     TwoStageServer,
@@ -60,7 +63,8 @@ def kind(name: str) -> str:
     """A kernel's kind, by its name."""
     n = name.lower()
     for key, label in (("entry_block", "K4"), ("roi_crop", "K1"),
-                       ("softargmax", "K2"), ("nms_topk", "K3")):
+                       ("softargmax_bwd", "K2-bwd"), ("softargmax", "K2"),
+                       ("nms_topk", "K3"), ("rs14conv", "K5")):
         if key in n:
             return label
     if "igemm" in n or "imma" in n or ("gemm" in n and "s8" in n):
@@ -99,8 +103,7 @@ def stages(label, yolo, rekt, frames, thresh, smi) -> None:
 
 def profile_served(label, yolo, rekt, frames, thresh, smi, n: int,
                    top: int) -> None:
-    policy = _shared.capacity().AdaptiveCapacity(floor=64, quantum=16,
-                                                 warmup_capacity=96)
+    policy = AdaptiveCapacity(floor=64, quantum=16, warmup_capacity=96)
     server = TwoStageServer(yolo, rekt, conf_thresh=thresh,
                             max_det=cs.MAX_DET, policy=policy)
     server.warmup([cs.B_SERVE], capacities=[64, 80, 96, CAPACITY])
@@ -142,8 +145,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
     cs.phase_build()
-    frames_np, _ = _shared.synthetic().yolo_batch(np.random.default_rng(42),
-                                                  cs.B_SERVE, cs.SIZE)
+    frames_np, _ = synthetic.yolo_batch(np.random.default_rng(42), cs.B_SERVE, cs.SIZE)
     yq, rq = cs.int8_models(cs.quantize_on_card(dev, frames_np), dev)
     yb, rb = cs.build_models(dev, torch.bfloat16)
     yb.to(memory_format=torch.channels_last)

@@ -1,9 +1,11 @@
 """Shared set-up of the ``test_torch_*`` files: the same seeded numpy
 weights go into the JAX package and, through ``convert.from_jax``, into the
-PyTorch port."""
+PyTorch port. Each package parses the same ``.cfg`` text with its own
+parser: the port checks block types against its own classes."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import textwrap
 
@@ -20,6 +22,7 @@ from mit_driverless_cv_traininginfra_tpu.models.stem_opt import (
 )
 from mit_driverless_cv_traininginfra_tpu.ops import pallas_entry as jentry
 from mit_driverless_cv_traininginfra_tpu_torch import convert
+from mit_driverless_cv_traininginfra_tpu_torch.config import darknet_cfg as tcfg
 from mit_driverless_cv_traininginfra_tpu_torch.models import (
     darknet,
     quantize,
@@ -113,15 +116,28 @@ def tiny_spec():
     return load_network_spec(TINY_CFG, vanilla_anchor=True)
 
 
+def tiny_port_spec():
+    """The tiny cfg parsed by the port's parser."""
+    return tcfg.load_network_spec(TINY_CFG, vanilla_anchor=True)
+
+
+def spec_key(spec):
+    """A spec of either package as plain data (block type names and
+    fields), so the two packages' specs compare equal when they agree."""
+    return (dataclasses.asdict(spec.net), spec.anchors,
+            tuple((type(b).__name__, dataclasses.asdict(b))
+                  for b in spec.blocks))
+
+
 def tiny_models(seed: int = 0, net_size: int = 4):
     """Serving models of both packages from one numpy init: the tiny
     Darknet cfg (BN folded, heads sliced to one class) and a narrow RektNet.
 
     Returns ``(jax, port)`` where ``jax = (spec, yolo_folded, rekt_folded)``
     and ``port = (yolo: Darknet, rekt: RektNet)``."""
-    spec = tiny_spec()
+    spec, tspec = tiny_spec(), tiny_port_spec()
     rng = np.random.default_rng(seed)
-    yp, ys = convert.init_darknet_np(spec, rng)
+    yp, ys = convert.init_darknet_np(tspec, rng)
     rp, rs = convert.init_rektnet_np(rng, net_size=net_size)
 
     jspec, jfolded = jslice_preyolo(
@@ -129,7 +145,8 @@ def tiny_models(seed: int = 0, net_size: int = 4):
     jrekt = jrektnet.fold_bn(to_jnp(rp), to_jnp(rs))
 
     tspec, tfolded = stem_opt.slice_preyolo(
-        spec, darknet.fold_bn(convert.from_jax(yp), convert.from_jax(ys), spec))
+        tspec, darknet.fold_bn(convert.from_jax(yp), convert.from_jax(ys),
+                               tspec))
     yolo = darknet.Darknet(tspec, tfolded)
     rekt = rektnet.RektNet(rektnet.fold_bn(convert.from_jax(rp),
                                            convert.from_jax(rs)))
@@ -145,30 +162,37 @@ def gap_threshold(conf: np.ndarray, per_frame: float) -> float:
     return float((flat[i - 1] + flat[i]) / 2)
 
 
-def entry_spec(directory):
-    """The ENTRY_CFG spec, written to a file in ``directory``."""
+def entry_specs(directory):
+    """The ENTRY_CFG spec, written to a file in ``directory`` and parsed by
+    both packages: ``(JAX spec, port spec)``."""
     path = os.path.join(str(directory), "entry.cfg")
     with open(path, "w") as f:
         f.write(ENTRY_CFG)
-    return load_network_spec(path, vanilla_anchor=True)
+    return (load_network_spec(path, vanilla_anchor=True),
+            tcfg.load_network_spec(path, vanilla_anchor=True))
 
 
 def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def int8_models(spec, frames, seed: int = 0, net_size: int = 16,
+def int8_models(specs, frames, seed: int = 0, net_size: int = 16,
                 use_entry: bool = True):
     """Both packages' int8 serving models from one numpy init: heads sliced
     to one class, calibrated on ``frames`` (and seeded crops) and quantized
     once in JAX, then carried to the port with ``quantized_from_jax``, so
-    both run on identical integers.
+    both run on identical integers. ``specs``: one cfg parsed by both
+    packages, ``(JAX spec, port spec)``.
 
     Returns ``(jax, port)``: ``jax = (spec', yolo_q, entry_q or None,
     rekt_q)``, ``port = (Int8Darknet, Int8RektNet)``."""
+    spec, tspec = specs
     rng = np.random.default_rng(seed)
-    yp, ys = convert.init_darknet_np(spec, rng)
+    yp, ys = convert.init_darknet_np(tspec, rng)
     rp, rs = convert.init_rektnet_np(rng, net_size=net_size)
+    tspec, _ = stem_opt.slice_preyolo(
+        tspec, darknet.fold_bn(convert.from_jax(yp), convert.from_jax(ys),
+                               tspec))
     jspec, jfolded = jslice_preyolo(
         spec, jdarknet.fold_bn(to_jnp(yp), to_jnp(ys), spec))
     jrekt = jrektnet.fold_bn(to_jnp(rp), to_jnp(rs))
@@ -179,7 +203,7 @@ def int8_models(spec, frames, seed: int = 0, net_size: int = 16,
     rekt_q = jquantize.quantize_rektnet_params(
         jrekt, jquantize.calibrate_rektnet(jrekt, jnp.asarray(crops)))
     yolo = quantize.Int8Darknet(
-        jspec, convert.quantized_from_jax(to_numpy(yolo_q)),
+        tspec, convert.quantized_from_jax(to_numpy(yolo_q)),
         None if entry_q is None else
         convert.quantized_from_jax(to_numpy(entry_q)))
     rekt = quantize.Int8RektNet(convert.quantized_from_jax(to_numpy(rekt_q)))

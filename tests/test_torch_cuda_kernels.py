@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from mit_driverless_cv_traininginfra_tpu.config import load_network_spec
 from mit_driverless_cv_traininginfra_tpu_torch import convert
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
+    load_network_spec,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
     two_stage_pipeline,
 )
@@ -24,11 +26,14 @@ from mit_driverless_cv_traininginfra_tpu_torch.models import (
 )
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_crop import roi_crop
 from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
+from mit_driverless_cv_traininginfra_tpu_torch.ops import resstage
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
     _torch_nms_topk,
     _torch_softargmax,
+    _torch_softargmax_bwd,
     fused_softargmax,
     nms_topk,
+    softargmax_bwd,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.ops.image import (
     roi_crop_bilinear_indexed,
@@ -187,3 +192,112 @@ def test_entry_block_rejects_bad_shapes(cuda):
         entry.fused_entry_block(torch.zeros((1, 32, 32, 128), dtype=torch.int8,
                                             device=cuda),
                                 {**ep, "w2_k4": ep["w2_k4"].cpu()}, 0.1)
+
+
+def _stage_bundle(cuda, rng, C: int, n: int):
+    """A random packed K5 bundle: int8 weights, small scales, biases."""
+    pk = {"w1_k": rng.integers(-127, 128, (n, C // 2, C), dtype=np.int8),
+          "w3_k": rng.integers(-127, 128, (n, C, 9 * C // 2), dtype=np.int8),
+          "s1": rng.uniform(1e-5, 3e-5, (n, C // 2)).astype(np.float32),
+          "b1": rng.normal(0, 0.1, (n, C // 2)).astype(np.float32),
+          "s3": rng.uniform(1e-6, 3e-6, (n, C)).astype(np.float32),
+          "b3": rng.normal(0, 0.1, (n, C)).astype(np.float32),
+          "sx1": np.full(n, 40.0, np.float32), "sx3": np.full(n, 30.0, np.float32),
+          "sx_out": np.full(1, 35.0, np.float32)}
+    return {k: torch.from_numpy(v).to(cuda) for k, v in pk.items()}
+
+
+@pytest.mark.parametrize("B,S,C,n", [(2, 13, 128, 2), (3, 26, 512, 2), (1, 5, 64, 3)])
+def test_res_stage_bit_equal_to_plain(cuda, B, S, C, n):
+    """K5 against ``_res_stage_plain`` on the card: every int8 of ``yq`` and
+    every bf16 of ``ybf`` equal, borders zero, with ±5 (→ ±127 after
+    quantization) on border rows and columns."""
+    rng = np.random.default_rng(8)
+    pk = _stage_bundle(cuda, rng, C, n)
+    x = torch.from_numpy(rng.normal(0, 1, (B, S, S, C)).astype(np.float32)).to(cuda)
+    x[:, 0], x[:, :, -1] = 5.0, -5.0
+    xf = resstage.res_stage_pre(x)
+    launches = resstage.fused_res_stage.launches
+    yq, ybf = resstage.fused_res_stage(xf, pk, S, n, 0.1)
+    torch.cuda.synchronize()
+    assert resstage.fused_res_stage.launches == launches + 1
+    ref_q, ref_b = resstage._res_stage_plain(xf, pk, S, n, 0.1)
+    assert torch.equal(yq, ref_q)
+    assert torch.equal(ybf.view(torch.int16), ref_b.view(torch.int16))
+    full = resstage.res_stage_post(yq, B, S)
+    assert int(full[:, 0].abs().max()) == 0 and int(full[:, :, -1].abs().max()) == 0
+
+
+def test_res_stage_rejects_bad_bundles(cuda):
+    pk = _stage_bundle(cuda, np.random.default_rng(9), 64, 2)
+    x = torch.zeros((36 * 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        resstage.fused_res_stage(x, pk, 4, 3, 0.1)  # n does not match
+    with pytest.raises(ValueError):
+        resstage.fused_res_stage(x[:70], pk, 4, 2, 0.1)  # not B·(S+2)² rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_g_probs", [True, False])
+def test_softargmax_bwd_matches_plain(cuda, dtype, with_g_probs):
+    """K2's backward against ``_torch_softargmax_bwd``: the row sum is taken
+    in another order (1e-5 of the row's largest |dz|), bf16 also rounds the
+    result (one bf16 ulp)."""
+    rng = np.random.default_rng(10)
+    z = torch.from_numpy(rng.normal(0, 3, (21, 80, 80)).astype(np.float32)).to(cuda, dtype)
+    _, probs = _torch_softargmax(z)
+    g_pts = torch.from_numpy(rng.normal(0, 1, (21, 2)).astype(np.float32)).to(cuda)
+    g_probs = (torch.from_numpy(rng.normal(0, 1e-2, (21, 80, 80)).astype(np.float32))
+               .to(cuda, dtype) if with_g_probs else None)
+    got = softargmax_bwd(probs, g_pts, g_probs)
+    ref = _torch_softargmax_bwd(probs, g_pts, g_probs)
+    rtol = 0.0 if dtype == torch.float32 else 2 ** -7
+    d = (got.float() - ref.float()).abs()
+    assert bool((d <= 1e-5 * ref.float().abs().max() + rtol * ref.float().abs()).all())
+
+
+def test_softargmax_autograd_launches_both_kernels(cuda):
+    z = torch.from_numpy(np.random.default_rng(11).normal(0, 3, (7, 80, 80))
+                         .astype(np.float32)).to(cuda).requires_grad_(True)
+    before = (fused_softargmax.launches, softargmax_bwd.launches)
+    pts, _ = fused_softargmax(z)
+    pts.sum().backward()
+    assert (fused_softargmax.launches, softargmax_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = _torch_softargmax_bwd(_torch_softargmax(z.detach())[1],
+                                torch.ones((7, 2), device=cuda))
+    torch.testing.assert_close(z.grad, ref, atol=1e-8, rtol=1e-5)
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One f32 SGD train step of a narrow RektNet on the card and on the
+    CPU: loss within 1e-5, every parameter update within 1e-3 of the
+    largest update (ill-conditioned f32 gradient sums), running stats
+    within 1e-4 of their scale."""
+    from mit_driverless_cv_traininginfra_tpu_torch.models import rektnet as rk
+    from mit_driverless_cv_traininginfra_tpu_torch.train import optim, steps
+
+    params, state = rk.init(torch.Generator().manual_seed(2), net_size=4)
+    rng = np.random.default_rng(12)
+    crops = rng.uniform(0, 1, (4, 80, 80, 3)).astype(np.float32)
+    pts = rng.uniform(0.2, 0.8, (4, 7, 2)).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda):
+        model = rk.KeypointNet(params, state).to(dev)
+        opt = optim.make_optimizer(model.parameters(), "SGD", lr=0.01)
+        total, _, _ = steps.rektnet_train_step(
+            model, opt, torch.from_numpy(crops).to(dev), None,
+            torch.from_numpy(pts).to(dev), include_geo=True,
+            geo_loss_gamma_horz=0.05, geo_loss_gamma_vert=0.05,
+            synth_target_sigma=1.0)
+        out.append((float(total), {k: v.cpu() for k, v in model.state_dict().items()}))
+    (l0, sd0), (l1, sd1) = out
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    p0 = rk.KeypointNet(params, state).state_dict()
+    names = {n for n, _ in rk.KeypointNet(params, state).named_parameters()}
+    scale = max(float((sd0[k] - p0[k]).abs().max()) for k in names)
+    for k in names:
+        assert float(((sd1[k] - p0[k]) - (sd0[k] - p0[k])).abs().max()) <= 1e-3 * scale, k
+    for k in sd0:
+        if k.endswith(("running_mean", "running_var")):
+            assert float((sd1[k] - sd0[k]).abs().max()) <= 1e-4 * float(sd0[k].abs().max())

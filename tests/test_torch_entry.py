@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import entry_spec, tiny_spec, to_numpy
-from mit_driverless_cv_traininginfra_tpu.config.flagship import flagship_spec
+from _torch_port import entry_specs, tiny_port_spec, tiny_spec, to_numpy
+from mit_driverless_cv_traininginfra_tpu.config.flagship import (
+    flagship_spec as jflagship_spec,
+)
 from mit_driverless_cv_traininginfra_tpu.ops import pallas_entry as jentry
 from mit_driverless_cv_traininginfra_tpu_torch import convert
+from mit_driverless_cv_traininginfra_tpu_torch.config.flagship import flagship_spec
 from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
 from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
 
@@ -58,19 +61,20 @@ def _within_one_step(got, want):
 
 def test_applicability(tmp_path):
     assert entry.entry_block_applicable(flagship_spec(416))
-    assert entry.entry_block_applicable(entry_spec(tmp_path))
-    assert not entry.entry_block_applicable(tiny_spec())  # maxpool stem
+    assert entry.entry_block_applicable(entry_specs(tmp_path)[1])
+    assert not entry.entry_block_applicable(tiny_port_spec())  # maxpool stem
     # block 5 at stride 1 is not the conv the fused path hardcodes
     bad = tmp_path / "bad"
     bad.mkdir()
-    spec = entry_spec(bad)
+    spec = entry_specs(bad)[1]
     blocks = list(spec.blocks)
     blocks[5] = dataclasses.replace(blocks[5], stride=1)
     assert not entry.entry_block_applicable(
         dataclasses.replace(spec, blocks=tuple(blocks)))
-    for s in (flagship_spec(416), tiny_spec()):
+    for s, js in ((flagship_spec(416), jflagship_spec(416)),
+                  (tiny_port_spec(), tiny_spec())):
         assert (entry.entry_block_applicable(s)
-                == jentry.entry_block_applicable(s))
+                == jentry.entry_block_applicable(js))
 
 
 def test_build_conv1_4x4_matches_jax(bundles):

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import tiny_spec, to_jnp
+from _torch_port import spec_key, tiny_port_spec, tiny_spec, to_jnp
 from mit_driverless_cv_traininginfra_tpu.models import darknet as jdarknet
 from mit_driverless_cv_traininginfra_tpu.models import rektnet as jrektnet
 from mit_driverless_cv_traininginfra_tpu.models.stem_opt import (
@@ -33,13 +33,15 @@ def _hwio(w):
 
 @pytest.fixture(scope="module")
 def tiny():
-    spec = tiny_spec()
+    """The tiny cfg parsed by both packages, ``(JAX spec, port spec)``,
+    frames and the folded weights of both."""
+    spec, tspec = tiny_spec(), tiny_port_spec()
     rng = np.random.default_rng(0)
-    yp, ys = convert.init_darknet_np(spec, rng)
+    yp, ys = convert.init_darknet_np(tspec, rng)
     x = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
     jfolded = jdarknet.fold_bn(to_jnp(yp), to_jnp(ys), spec)
-    tfolded = darknet.fold_bn(convert.from_jax(yp), convert.from_jax(ys), spec)
-    return spec, x, jfolded, tfolded
+    tfolded = darknet.fold_bn(convert.from_jax(yp), convert.from_jax(ys), tspec)
+    return (spec, tspec), x, jfolded, tfolded
 
 
 def test_from_jax_transposes_conv_weights_only():
@@ -65,8 +67,8 @@ def test_darknet_fold_bn_matches_jax(tiny):
 
 
 def test_darknet_forward_and_detections_match_jax(tiny):
-    spec, x, jfolded, tfolded = tiny
-    model = darknet.Darknet(spec, tfolded)
+    (spec, tspec), x, jfolded, tfolded = tiny
+    model = darknet.Darknet(tspec, tfolded)
     with torch.inference_mode():
         heads = model.forward_features(torch.from_numpy(x))
         dets = model.detections(torch.from_numpy(x), with_classes=True)
@@ -84,8 +86,8 @@ def test_darknet_forward_and_detections_match_jax(tiny):
 
 
 def test_decode_is_f32_for_bf16_heads(tiny):
-    spec, x, _, tfolded = tiny
-    model = darknet.Darknet(spec, tfolded).to(torch.bfloat16)
+    (_, tspec), x, _, tfolded = tiny
+    model = darknet.Darknet(tspec, tfolded).to(torch.bfloat16)
     with torch.inference_mode():
         dets = model.detections(torch.from_numpy(x).to(torch.bfloat16),
                                 with_classes=False)
@@ -93,10 +95,10 @@ def test_decode_is_f32_for_bf16_heads(tiny):
 
 
 def test_slice_preyolo_matches_jax(tiny):
-    spec, x, jfolded, tfolded = tiny
+    (spec, tspec), x, jfolded, tfolded = tiny
     jspec, jsliced = jslice_preyolo(spec, jfolded)
-    tspec, tsliced = stem_opt.slice_preyolo(spec, tfolded)
-    assert tspec == jspec and tspec.net.num_classes == 0
+    tspec, tsliced = stem_opt.slice_preyolo(tspec, tfolded)
+    assert spec_key(tspec) == spec_key(jspec) and tspec.net.num_classes == 0
     for k in jsliced:
         np.testing.assert_allclose(_hwio(tsliced[k]["w"]),
                                    np.asarray(jsliced[k]["w"]), rtol=5e-7)

@@ -11,8 +11,10 @@ from mit_driverless_cv_traininginfra_tpu.infer.pipeline import (
     two_stage_pipeline as jax_pipeline,
 )
 from mit_driverless_cv_traininginfra_tpu.models.darknet import detections
-from mit_driverless_cv_traininginfra_tpu_torch import _shared
 from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
+from mit_driverless_cv_traininginfra_tpu_torch.infer.capacity import (
+    AdaptiveCapacity,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
     two_stage_pipeline,
 )
@@ -94,7 +96,7 @@ def test_uint8_feed_matches_jax(setup):
 
 def test_server_answers_and_counts(setup):
     _, _, _, yolo, rekt, frames, _, thresh = setup
-    policy = _shared.capacity().AdaptiveCapacity(floor=16, quantum=16)
+    policy = AdaptiveCapacity(floor=16, quantum=16)
     server = TwoStageServer(yolo, rekt, conf_thresh=thresh, max_det=MAX_DET,
                             policy=policy, observe_every=2)
     server.warmup([B], capacities=[16, 32])

@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import entry_spec, gap_threshold, int8_models
+from _torch_port import entry_specs, gap_threshold, int8_models
 from mit_driverless_cv_traininginfra_tpu.infer.pipeline import (
     two_stage_pipeline_int8 as jax_pipeline_int8,
 )
 from mit_driverless_cv_traininginfra_tpu.models import quantize as jquantize
-from mit_driverless_cv_traininginfra_tpu_torch import _shared
+from mit_driverless_cv_traininginfra_tpu_torch.infer.capacity import (
+    AdaptiveCapacity,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
     two_stage_pipeline,
     two_stage_pipeline_int8,
@@ -36,11 +38,11 @@ B, MAX_DET = 3, 16
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    spec = entry_spec(tmp_path_factory.mktemp("cfg"))
+    specs = entry_specs(tmp_path_factory.mktemp("cfg"))
     rng = np.random.default_rng(5)
     frames_u8 = rng.integers(0, 256, (B, 64, 64, 3), dtype=np.uint8)
     frames = frames_u8.astype(np.float32) / 255.0
-    (jspec, yolo_q, entry_q, rekt_q), (yolo, rekt) = int8_models(spec, frames)
+    (jspec, yolo_q, entry_q, rekt_q), (yolo, rekt) = int8_models(specs, frames)
     fb = (jnp.asarray(frames_u8).astype(jnp.float32) / 255.0).astype(
         jnp.bfloat16)
     with jax.disable_jit():
@@ -120,7 +122,7 @@ def test_frame_dtype_comes_from_the_configuration(setup):
 
 def test_int8_server_warms_pads_and_counts(setup):
     _, (yolo, rekt), frames_u8, thresh = setup
-    policy = _shared.capacity().AdaptiveCapacity(floor=8, quantum=8)
+    policy = AdaptiveCapacity(floor=8, quantum=8)
     server = TwoStageServer(yolo, rekt, conf_thresh=thresh, max_det=MAX_DET,
                             policy=policy, observe_every=2)
     launches = fused_entry_block.launches

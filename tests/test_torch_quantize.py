@@ -10,7 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import entry_spec, tiny_spec, to_jnp, to_numpy
+from _torch_port import (
+    entry_specs,
+    tiny_port_spec,
+    tiny_spec,
+    to_jnp,
+    to_numpy,
+)
 from mit_driverless_cv_traininginfra_tpu.models import darknet as jdarknet
 from mit_driverless_cv_traininginfra_tpu.models import quantize as jquantize
 from mit_driverless_cv_traininginfra_tpu.models import rektnet as jrektnet
@@ -28,16 +34,17 @@ from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
 
 @pytest.fixture(scope="module", params=["entry", "tiny"])
 def darknet_case(request, tmp_path_factory):
-    """A spec, its folded weights in both packages and calibration frames:
-    the 64² YOLOv3 entry pattern, and the tiny cfg (maxpool, route,
-    upsample, two heads; no entry)."""
-    spec = (entry_spec(tmp_path_factory.mktemp("cfg"))
-            if request.param == "entry" else tiny_spec())
+    """A cfg parsed by both packages, its folded weights in both and
+    calibration frames: the 64² YOLOv3 entry pattern, and the tiny cfg
+    (maxpool, route, upsample, two heads; no entry). Returns ``(name,
+    (JAX spec, port spec), JAX folded, port folded, frames)``."""
+    specs = (entry_specs(tmp_path_factory.mktemp("cfg"))
+             if request.param == "entry" else (tiny_spec(), tiny_port_spec()))
     rng = np.random.default_rng(0)
-    yp, ys = convert.init_darknet_np(spec, rng)
-    jfolded = jdarknet.fold_bn(to_jnp(yp), to_jnp(ys), spec)
+    yp, ys = convert.init_darknet_np(specs[1], rng)
+    jfolded = jdarknet.fold_bn(to_jnp(yp), to_jnp(ys), specs[0])
     frames = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
-    return (request.param, spec, jfolded,
+    return (request.param, specs, jfolded,
             convert.from_jax(to_numpy(jfolded)), frames)
 
 
@@ -63,9 +70,9 @@ def _assert_trees_equal(got, want, path=""):
 
 
 def test_calibrate_matches_jax(darknet_case):
-    _, spec, jfolded, tfolded, frames = darknet_case
+    _, (spec, tspec), jfolded, tfolded, frames = darknet_case
     want = jquantize.calibrate(spec, jfolded, jnp.asarray(frames))
-    got = quantize.calibrate(spec, tfolded, torch.from_numpy(frames))
+    got = quantize.calibrate(tspec, tfolded, torch.from_numpy(frames))
     assert sorted(got) == sorted(want)
     # f32 convs on the CPU in both frameworks, summed in other orders
     for k in want:
@@ -76,17 +83,17 @@ def test_quantized_leaves_bit_equal_to_jax(darknet_case):
     """Given the JAX package's folded weights (through ``from_jax``) and the
     same amax, every quantized leaf is bit-equal: int8 weights, f32 scales,
     biases and input-scale inverses, bf16 pre-yolo convs."""
-    _, spec, jfolded, tfolded, frames = darknet_case
+    _, (spec, tspec), jfolded, tfolded, frames = darknet_case
     amax = jquantize.calibrate(spec, jfolded, jnp.asarray(frames))
     want = convert.quantized_from_jax(
         to_numpy(jquantize.quantize_params(spec, jfolded, amax)))
-    _assert_trees_equal(quantize.quantize_params(spec, tfolded, amax), want)
+    _assert_trees_equal(quantize.quantize_params(tspec, tfolded, amax), want)
 
 
 def test_quantize_params_needs_every_amax(darknet_case):
-    _, spec, _, tfolded, _ = darknet_case
+    _, (_, tspec), _, tfolded, _ = darknet_case
     with pytest.raises(KeyError, match="amax missing"):
-        quantize.quantize_params(spec, tfolded, {})
+        quantize.quantize_params(tspec, tfolded, {})
 
 
 def test_rektnet_calibrate_and_leaves_match_jax(rektnet_case):
@@ -151,7 +158,7 @@ def test_int8_darknet_heads_match_jax(darknet_case):
     """``Int8Darknet`` on identical leaves vs ``forward_features_int8``:
     correlation > 0.999 per head (±1 int8 steps from XLA's rounding may
     propagate), on the plain path and, for the entry cfg, the fused one."""
-    name, spec, jfolded, _, frames = darknet_case
+    name, (spec, tspec), jfolded, _, frames = darknet_case
     amax = jquantize.calibrate(spec, jfolded, jnp.asarray(frames))
     yolo_q = jquantize.quantize_params(spec, jfolded, amax)
     entries = [None] + ([jentry.quantize_entry(jfolded, amax)]
@@ -160,7 +167,7 @@ def test_int8_darknet_heads_match_jax(darknet_case):
         want = jquantize.forward_features_int8(
             spec, yolo_q, jnp.asarray(frames), entry_q=entry_q)
         model = quantize.Int8Darknet(
-            spec, convert.quantized_from_jax(to_numpy(yolo_q)),
+            tspec, convert.quantized_from_jax(to_numpy(yolo_q)),
             None if entry_q is None else
             convert.quantized_from_jax(to_numpy(entry_q)))
         assert (model.entry is None) == (entry_q is None)
@@ -175,7 +182,7 @@ def test_int8_darknet_heads_match_jax(darknet_case):
 
 
 def test_int8_darknet_detections_decode_in_f32(darknet_case):
-    name, spec, _, tfolded, frames = darknet_case
+    name, (_, spec), _, tfolded, frames = darknet_case
     amax = quantize.calibrate(spec, tfolded, frames)
     entry_q = entry.quantize_entry(tfolded, amax) if name == "entry" else None
     model = quantize.Int8Darknet(spec, quantize.quantize_params(
@@ -188,7 +195,7 @@ def test_int8_darknet_detections_decode_in_f32(darknet_case):
 
 
 def test_int8_darknet_refuses_entry_on_other_specs():
-    spec = tiny_spec()  # a maxpool stem: not the YOLOv3 entry
+    spec = tiny_port_spec()  # a maxpool stem: not the YOLOv3 entry
     rng = np.random.default_rng(2)
     yp, ys = convert.init_darknet_np(spec, rng)
     folded = darknet.fold_bn(convert.from_jax(yp), convert.from_jax(ys), spec)
