@@ -6,9 +6,10 @@
 Drives the port's main paths — the two-stage detect→crop→keypoints serving
 path at the full width of YOLOv3-416 and RektNet, in bf16/f32 and in its
 int8 configuration; the int8 residual stage (K5) on the int8 forward's
-26² activations; RektNet training at full width (net_size 16, 80×80, 7
-keypoints, B=32) — on seeded random weights, and checks its hand-written
-CUDA kernels:
+26² activations; the Pallas probes of the repository's ``tools/`` on four
+kernels, at the probes' sizes; RektNet training at full width (net_size
+16, 80×80, 7 keypoints, B=32) — on seeded random weights, and checks its
+hand-written CUDA kernels:
 
 1. device: requires CUDA (no CPU fallback); prints the card's name and
    power limit as nvidia-smi reports them;
@@ -29,9 +30,18 @@ CUDA kernels:
 6. K5: the int8 forward of the served frames up to the 26² stage (S=26,
    C=512, n=8, B=8), then K5 against its plain version, every int8 and
    bf16 equal, borders included; again at S=13 with ±127 at the borders;
-7. K2 backward against its plain version at (224, 80, 80), f32 and bf16,
+7. probes: the ported Pallas probes of the repository's ``tools/``
+   (``probes.PROBES``, 46, and P16 at 128× its rows) at their own sizes,
+   each through the kernels ``tail_conv``, ``window_resample``,
+   ``int8_contract`` and ``strided_map`` against its plain route (bits
+   equal; block sums within their f32 tolerance); then ``tail_conv`` on
+   the int8 RektNet's own ``res4.conv1`` — its input the activations that
+   ``res[0..2]`` make of the K1 crops of the served frames, 64 crops —
+   value-equal to ``relu(_qconv(h, res4.conv1))``; each of the four
+   counted over this path, and timed on one of its shapes;
+8. K2 backward against its plain version at (224, 80, 80), f32 and bf16,
    with and without a probabilities' gradient;
-8. training: one f32 ``rektnet_train_step`` on the card against the CPU
+9. training: one f32 ``rektnet_train_step`` on the card against the CPU
    from the same seeded parameters and batch (loss, updated parameters,
    running stats); 20 bf16 and 20 f32 steps on the card (finite losses,
    K2 forward and backward launched, ms per step); two epochs of the
@@ -40,9 +50,10 @@ CUDA kernels:
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
 its own path's run (counters set to 0 just before it): K1-K4 over the
-int8 server's requests, K5 over its stage path, K2's backward over the
-training steps. ``bound_ms`` is the larger of the row's bytes over 3.35
-TB/s and its operations over the card's peak for their type. Any failure
+int8 server's requests, K5 over its stage path, the four probe kernels
+over the probe path, K2's backward over the training steps. ``bound_ms``
+is the larger of the row's bytes over 3.35 TB/s and its operations over
+the card's peak for their type. Any failure
 raises: exit code ≠ 0 and no result line. Imports nothing of JAX.
 """
 
@@ -71,6 +82,21 @@ KERNEL_ROWS = {  # name → (source, TPU kernel it replaces)
                   "mit_driverless_cv_traininginfra_tpu/ops/pallas_resstage.py:224"),
     "softargmax_bwd": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/softargmax.cu",
                        "mit_driverless_cv_traininginfra_tpu/ops/pallas_kernels.py:295"),
+    # the Pallas probes of the repository's tools/ (probes.PROBES), by kernel
+    "tail_conv": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/tail_conv.cu",
+                  "tools/probe_tail_conv1.py:64"),
+    "window_resample": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/window_resample.cu",
+                        "tools/probe_crop_kernel.py:125,156"),
+    "int8_contract": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/int8_contract.cu",
+                      "tools/probe_mosaic.py:48,118,145; tools/probe_mosaic2.py:105,120; "
+                      "tools/probe_mosaic3.py:84; tools/probe_mosaic4.py:70,86; "
+                      "tools/probe_mosaic6.py:114; tools/reprobe.py:89"),
+    "strided_map": ("mit_driverless_cv_traininginfra_tpu_torch/csrc/strided_map.cu",
+                    "tools/probe_crop_dma.py:50; tools/probe_crop_kernel.py:77; "
+                    "tools/probe_mosaic.py:61,72,83,103,129; "
+                    "tools/probe_mosaic2.py:64,76,89,185; tools/probe_mosaic3.py:68,98,109,172; "
+                    "tools/probe_mosaic5.py:70; tools/probe_mosaic6.py:96,126,142; "
+                    "tools/probe_mosaic7.py:123; tools/reprobe.py:89,201"),
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -744,7 +770,107 @@ def phase_k5(dev, rows: dict, bundles, yolo, frames_np) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: K2's backward
+# phase 7: the tools' Pallas probes on the four probe kernels
+# ---------------------------------------------------------------------------
+
+PROBE_KERNELS = ("tail_conv", "window_resample", "int8_contract", "strided_map")
+# the shape each probe kernel's row is timed on (tail_conv: RektNet's res4)
+TIMED_PROBE = {"window_resample": "P22", "int8_contract": "P16x128",
+               "strided_map": "Q17"}
+
+
+def served_crops(yolo, rekt, frames, thresh, capacity: int = 64):
+    """The K1 crops the int8 server hands RektNet for ``frames``: the top
+    ``capacity`` detections of the detector, cropped to 80×80."""
+    from mit_driverless_cv_traininginfra_tpu_torch.infer import pipeline
+
+    got = []
+
+    def keep(crops):
+        got.append(crops)
+        return rekt(crops)[1]
+
+    with torch.inference_mode():
+        boxes, scores, mask = pipeline._postprocess(yolo(frames), thresh, 0.25, MAX_DET)
+        pipeline._crops_and_keypoints(keep, frames, boxes, scores, mask, 80, capacity)
+    return got[0]
+
+
+def phase_probes(dev, rows: dict, yolo, rekt, frames_np, thresh, smi) -> None:
+    """Every probe through the kernels against its plain route, then
+    ``tail_conv`` on the int8 RektNet's ``res4.conv1``. The four counters
+    are set to 0 just before the probes and read after the res4 call."""
+    import torch.nn.functional as F
+
+    from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
+    from mit_driverless_cv_traininginfra_tpu_torch.probes import KERNEL, PLAIN, PROBES, WRAPPERS
+    from mit_driverless_cv_traininginfra_tpu_torch.probes import tail_conv1
+    from mit_driverless_cv_traininginfra_tpu_torch.probes.mosaic import DP4A
+    from mit_driverless_cv_traininginfra_tpu_torch.probes.run import run_both
+
+    frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
+    crops = served_crops(yolo, rekt, frames, thresh)
+    with torch.inference_mode():
+        h = F.relu(quantize._qconv(crops, rekt.stem))
+        for blk in rekt.res[:3]:
+            h = blk(h)
+    conv1 = rekt.res[3].conv1
+    check(tuple(h.shape) == (64, 80, 80, 64) and conv1.out_channels == 128,
+          f"res4.conv1 input {tuple(h.shape)}")
+    err = {k: 0.0 for k in PROBE_KERNELS}
+    timed = {}
+    t0 = time.perf_counter()
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    for probe in PROBES + [DP4A]:
+        inp = probe.build(dev)
+        res = run_both(probe, inp)
+        log(f"probe {probe.name} ({probe.ref}) {probe.kernel}: differing "
+            f"{res.differing}/{res.kernel_out.numel()} max|d| {res.max_abs_err!r} "
+            f"launches {res.launches[probe.kernel]}")
+        check(res.ok and res.launches[probe.kernel] >= 1,
+              f"probe {probe.name}: the kernel route differs or never launched")
+        err[probe.kernel] = max(err[probe.kernel], res.max_abs_err)
+        if probe.name in TIMED_PROBE.values():
+            timed[probe.kernel] = (probe, inp, res.kernel_out)
+    with torch.inference_mode():
+        got = WRAPPERS["tail_conv"](h, conv1)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+        want = F.relu(quantize._qconv(h, conv1))
+    n_diff = int((got != want).sum())
+    log(f"probes: {len(PROBES) + 1} probes PASS in {time.perf_counter() - t0:.1f} s; "
+        f"launches over the probe path {launches}")
+    check(all(launches[k] > 0 for k in PROBE_KERNELS),
+          f"a probe kernel never launched on the probe path: {launches}")
+    with torch.inference_mode():
+        k_ms, p_ms = paired_ms(lambda: WRAPPERS["tail_conv"](h, conv1),
+                               lambda: PLAIN.tail_conv(h, conv1), iters=20)
+    nb, ops, kind = tail_conv1.tail_work({"h": h, "q": conv1}, got)
+    b = bound(nb, ops, kind)
+    log(f"tail_conv on Int8RektNet res4.conv1, {tuple(h.shape)} from K1 crops of "
+        f"the served frames: differing {n_diff}/{got.numel()} (values), kernel "
+        f"{k_ms!r} ms ({ops / k_ms / 1e9:.1f} TOP/s) plain {p_ms!r} ms, bound "
+        f"{b['bound_ms']!r} ms ({b['bound_by']}) on {smi}")
+    check(n_diff == 0, "tail_conv differs from relu(_qconv(h, res4.conv1))")
+    rows["tail_conv"].update(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                             max_abs_err=max(err["tail_conv"], max_abs(got, want)),
+                             launches=launches["tail_conv"], **b)
+    for kernel, (probe, inp, out) in timed.items():
+        k_ms, p_ms = paired_ms(lambda: probe.run(inp, KERNEL), lambda: probe.run(inp, PLAIN),
+                               iters=20)
+        lib_ms = cuda_ms(probe.library(inp), 20) if probe.library is not None else None
+        nb, ops, kind = probe.work(inp, out)
+        b = bound(nb, ops, kind)
+        rate = f"{ops / k_ms / 1e9:.1f} TOP/s" if kind == "int8" else f"{nb / k_ms / 1e6:.1f} GB/s"
+        log(f"{kernel} on {probe.name}: kernel {k_ms!r} ms ({rate}) plain {p_ms!r} ms "
+            f"library {lib_ms!r} ms bound {b['bound_ms']!r} ms ({b['bound_by']}) on {smi}")
+        rows[kernel].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                            max_abs_err=err[kernel], launches=launches[kernel], **b)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: K2's backward
 # ---------------------------------------------------------------------------
 
 
@@ -791,7 +917,7 @@ def phase_k2_bwd(dev, rows: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: RektNet training
+# phase 9: RektNet training
 # ---------------------------------------------------------------------------
 
 TRAIN_B = 32
@@ -989,6 +1115,7 @@ def main() -> int:
     for name, n in launches.items():
         rows[name]["launches"] = n
     phase_k5(dev, rows, bundles, yolo_q, frames_np)
+    phase_probes(dev, rows, yolo_q, rekt_q, frames_np, thresh_q, smi)
     phase_k2_bwd(dev, rows)
     phase_train_agree(dev)
     phase_train_card(dev, smi, rows)

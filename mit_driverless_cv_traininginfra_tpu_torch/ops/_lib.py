@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, which is loaded with ``ctypes`` (no
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles for
+``sm_90a``, and one more links the objects into a shared library with a
+plain C interface, which is loaded with ``ctypes`` (no
 PyTorch headers, so the build takes seconds, not minutes). The library is
 named by a hash of the sources and the flags and written to ``build/``
 beside ``csrc/`` (git-ignored), so a changed source rebuilds and an
@@ -38,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # C entry point → argtypes; every one returns a cudaError_t as int
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     # frames, sx, sy, fidx, out, N, B, H, W, C, out_h, out_w, dtype, stream
     "mdcv_roi_crop": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -56,10 +57,23 @@ SIGNATURES = {
     "mdcv_res_stage": (_P,) * 13 + (_I, _I, _I, _I, _F, _I, _P),
     # probs, g_probs (or null), g_pts, xv, yv, dz, M, HW, dtype, stream
     "mdcv_softargmax_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w_nk, scale, bias, sx_inv, out, C, H, W, Cin, N, dilation, dtype,
+    # stream
+    "mdcv_tail_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # frames, fidx, r0, l0, sx, out, n, B, H, WF, rows, M, win_w, ch, stream
+    "mdcv_window_resample": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P),
+    # a, b, scale (or null), out, M, N, K, sam, sak, sbk, sbn, som, son,
+    # out dtype, stream
+    "mdcv_int8_contract": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                           _I, _P),
+    # src, out, idx0, idx1, idx2, params (host int64[19]), in dtype,
+    # out dtype, op, c, partial sums (reduce mode), stream
+    "mdcv_strided_map": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
 }
 
 # each kernel checks the code it is given and refuses the others
-DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int32": 3}
 
 
 def _sources() -> list[Path]:
@@ -106,15 +120,28 @@ def build() -> Path:
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(s) for s in srcs if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
+    nvcc, compile_flags = _nvcc(), [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    objs, procs = [], []
+    for s in (s for s in srcs if s.suffix == ".cu"):
+        obj = BUILD / f"{s.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *compile_flags, "-I", str(CSRC), "-c", "-o", str(obj), str(s)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(str(obj))
+    link = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *objs]
+    steps = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    if all(rc == 0 for _, _, rc in steps):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, proc.stdout + proc.stderr, proc.returncode))
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
     build_info.seconds = time.perf_counter() - t0
-    build_info.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_info.log}")
+    build_info.log = "".join(log for _, log, _ in steps)
+    for cmd, log, rc in steps:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     build_info.built = True
     return out

@@ -7,6 +7,9 @@ where JAX is absent:
 """
 
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -301,3 +304,210 @@ def test_train_step_card_matches_cpu(cuda):
     for k in sd0:
         if k.endswith(("running_mean", "running_var")):
             assert float((sd1[k] - sd0[k]).abs().max()) <= 1e-4 * float(sd0[k].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the four probe kernels: tail_conv, window_resample, int8_contract,
+# strided_map
+# ---------------------------------------------------------------------------
+
+
+def _probe_names():
+    from mit_driverless_cv_traininginfra_tpu_torch.probes import PROBES
+
+    return [p.name for p in PROBES] + ["P16x128"]
+
+
+def _assert_same_bits(got, want):
+    """Bit for bit, except that a NaN only has to be a NaN (the card's
+    conversions and torch's write different NaN payloads)."""
+    if not got.is_floating_point():
+        assert torch.equal(got, want)
+        return
+    nan = got.isnan()
+    assert torch.equal(nan, want.isnan())
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    assert torch.equal(got.view(ints)[~nan], want.view(ints)[~nan])
+
+
+@pytest.mark.parametrize("name", _probe_names())
+def test_probe_kernel_route_matches_plain(cuda, name):
+    """Each probe of ``probes.PROBES`` (its CPU-test size) through the
+    kernels against its plain route, under the probe's rule."""
+    from mit_driverless_cv_traininginfra_tpu_torch.probes import BY_NAME
+    from mit_driverless_cv_traininginfra_tpu_torch.probes.mosaic import DP4A
+    from mit_driverless_cv_traininginfra_tpu_torch.probes.run import run_both
+
+    probe = {**BY_NAME, DP4A.name: DP4A}[name]
+    res = run_both(probe, probe.build(cuda, small=True))
+    assert res.kernel_out.is_cuda and res.launches[probe.kernel] >= 1
+    assert res.differing == 0, (res.differing, res.max_abs_err)
+
+
+def test_tail_conv_on_int8_rektnet_res4(cuda):
+    """``tail_conv`` on a quantized ``Int8RektNet``'s own ``res4.conv1``
+    (net_size 8: 32 → 64 channels) equals ``relu(_qconv(h, conv1))`` value
+    for value, h from its ``res[0..2]``."""
+    import torch.nn.functional as F
+
+    from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.tail_conv import tail_conv
+
+    rng = np.random.default_rng(13)
+    rp, rs = convert.init_rektnet_np(rng, net_size=8)
+    folded = rektnet.fold_bn(convert.from_jax(rp), convert.from_jax(rs))
+    crops = rng.uniform(0, 1, (5, 80, 80, 3)).astype(np.float32)
+    rq = quantize.quantize_rektnet_params(folded, quantize.calibrate_rektnet(folded, crops))
+    rekt = quantize.Int8RektNet(rq).to(cuda).eval()
+    with torch.inference_mode():
+        h = F.relu(quantize._qconv(torch.from_numpy(crops).to(cuda), rekt.stem))
+        for blk in rekt.res[:3]:
+            h = blk(h)
+        before = tail_conv.launches
+        got = tail_conv(h, rekt.res[3].conv1)
+        want = F.relu(quantize._qconv(h, rekt.res[3].conv1))
+    torch.cuda.synchronize()
+    assert tail_conv.launches == before + 1
+    assert got.shape == want.shape == (5, 80, 80, 64)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        tail_conv(h, rekt.res[3].shortcut_conv)  # a 1×1 conv
+
+
+@pytest.mark.parametrize("K", [16, 32, 48, 64, 108])
+@pytest.mark.parametrize("layout", ["rows", "transposed"])
+def test_int8_contract_matches_plain(cuda, K, layout):
+    """Strided int8 (M, K)·(K, N) → int32 bit for bit against the float64
+    product, M and N not multiples of the 64×64 tile; with the scale
+    epilogue, bf16 bit for bit."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.int8_contract import (
+        int8_contract,
+        int8_contract_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(K)
+    M, N = 203, 77
+    a = torch.randint(-127, 128, (M, K) if layout == "rows" else (K, M), generator=g,
+                      device=cuda, dtype=torch.int8)
+    a = a if layout == "rows" else a.t()
+    b = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8).t()
+    got = int8_contract(a, b)
+    assert got.dtype == torch.int32 and torch.equal(got, int8_contract_plain(a, b))
+    scale = torch.rand(N, generator=g, device=cuda) * 1e-3
+    got = int8_contract(a, b, scale)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), int8_contract_plain(a, b, scale).view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32, torch.int32])
+def test_strided_map_copies_bit_for_bit(cuda, dtype):
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import (
+        strided_map,
+        strided_map_plain,
+    )
+
+    x = torch.arange(5 * 37 * 19 * 6, device=cuda).reshape(5, 37, 19, 6).to(dtype)
+    for view in (x[:, 1::3, :, 2:5], x.permute(2, 0, 3, 1),
+                 x.reshape(5, -1)[:, 7:900:2], x.as_strided((4, 3, 19, 6), (0, 6, 37 * 6, 1))):
+        got = strided_map(view)
+        assert got.is_contiguous() and torch.equal(got, strided_map_plain(view))
+    out = torch.zeros((37, 30), dtype=dtype, device=cuda)
+    strided_map(x[0, :, :5, 0], out=out[:, 10:15])
+    assert torch.equal(out[:, 10:15], x[0, :, :5, 0]) and not out[:, :10].any()
+
+
+@pytest.mark.parametrize("op", ["scale", "quantize", "compare"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_strided_map_ops_with_nan_match_plain(cuda, op, dtype):
+    """Maps bit for bit, a NaN, ±inf, halves and −0.0 among the inputs."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import (
+        strided_map,
+        strided_map_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn((6, 130), generator=g, device=cuda) * 0.6).to(dtype)
+    x[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                             0.5 / 127, -1.5 / 127], dtype=dtype)
+    c = {"scale": 2.0, "quantize": 127.0, "compare": 1.0}[op]
+    view = x.t()
+    got, want = strided_map(view, op, c), strided_map_plain(view, op, c)
+    assert got.dtype == want.dtype
+    _assert_same_bits(got, want)
+
+
+@pytest.mark.parametrize("shape", [(3, 12, 208, 208), (2, 97, 13), (5, 8192), (4, 3, 7, 11)])
+def test_strided_map_sums_within_tolerance(cuda, shape):
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import (
+        SUM_RTOL,
+        strided_map,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(len(shape))
+    x = torch.randint(-127, 127, shape, generator=g, device=cuda, dtype=torch.int8)
+    for view in (x, x.transpose(-1, -2)):
+        got = strided_map(view, "sum")
+        flat = view.reshape(view.shape[0], -1).double()
+        tol = SUM_RTOL * flat.abs().sum(1)
+        assert got.shape == (view.shape[0],)
+        assert bool(((got.double() - flat.sum(1)).abs() <= tol).all())
+
+
+def test_window_resample_matches_plain_at_the_edges(cuda):
+    """Columns at the window's first and last tap, between taps, outside
+    it and NaN: bit for bit."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.window_resample import (
+        window_resample,
+        window_resample_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    frames = torch.rand((3, 120, 90), generator=g, device=cuda).to(torch.bfloat16)
+    fidx = torch.tensor([2, 0, 1, 2], device=cuda)
+    r0 = torch.tensor([0, 17, 40, 33], device=cuda)
+    l0 = torch.tensor([0, 3, 11, 30], device=cuda)
+    sx = torch.rand((4, 20), generator=g, device=cuda) * 24 - 2
+    sx[0, :6] = torch.tensor([0.0, 19.0, 19.5, -0.5, -3.0, float("nan")])
+    got = window_resample(frames, fidx, r0, l0, sx, rows=50, win_w=20, ch=3)
+    want = window_resample_plain(frames, fidx, r0, l0, sx, rows=50, win_w=20, ch=3)
+    assert got.shape == (4, 50, 60)
+    _assert_same_bits(got, want)
+
+
+# Each script first runs its kernel on windows inside the input, then on
+# one window past its end, which must trap (it poisons the CUDA context,
+# hence a process of its own).
+_OUTSIDE = {
+    "window_resample": """
+from mit_driverless_cv_traininginfra_tpu_torch.ops.window_resample import window_resample
+frames = torch.zeros((2, 30, 24), dtype=torch.bfloat16, device="cuda")
+sx = torch.zeros((2, 4), device="cuda")
+def run(r):
+    window_resample(frames, i([0, 1]), i([0, r]), i([0, 6]), sx, rows=20, win_w=6, ch=3)
+""",
+    "strided_map": """
+from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import strided_map
+x = torch.arange(40, dtype=torch.float32, device="cuda").reshape(4, 10)
+def run(r):
+    strided_map(x.as_strided((2, 2, 5), (0, 10, 1)), index=[(i([0, r]), 10)])
+""",
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_OUTSIDE))
+def test_a_window_outside_the_input_traps(cuda, kernel):
+    """A per-program base past the input's end makes the kernel trap, not
+    read out of bounds (the plain version raises IndexError)."""
+    script = ("import torch\n"
+              "i = lambda v: torch.tensor(v, dtype=torch.int32, device='cuda')\n"
+              + _OUTSIDE[kernel] +
+              "run(2 if %r == 'strided_map' else 10)\n"
+              "torch.cuda.synchronize()\n"
+              "print('inside ok', flush=True)\n"
+              "run(3 if %r == 'strided_map' else 11)\n"
+              "torch.cuda.synchronize()\n"
+              "print('outside read', flush=True)\n" % (kernel, kernel))
+    p = subprocess.run([sys.executable, "-c", script], cwd=Path(__file__).resolve().parents[1],
+                       capture_output=True, text=True, timeout=300)
+    assert "inside ok" in p.stdout, p.stderr[-2000:]
+    assert "outside read" not in p.stdout and p.returncode != 0

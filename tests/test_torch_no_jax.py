@@ -2,7 +2,8 @@
 
 A fresh interpreter imports every module of the port, serves the tiny
 slice on the CPU in f32 and in int8 (quantized by the port itself), takes
-a RektNet training step and runs the plain residual stage; then neither
+a RektNet training step, runs the plain residual stage and the plain
+routes of probes on each of the four probe kernels; then neither
 ``jax`` nor any ``mit_driverless_cv_traininginfra_tpu`` module may be in
 ``sys.modules``. An AST walk over the port's files and ``chip_smoke.py``
 finds no import of the JAX package and no path into its directory."""
@@ -78,6 +79,15 @@ pk = {"w1_k": torch.ones((n, c // 2, c), dtype=torch.int8),
 x = resstage.res_stage_pre(torch.randn(2, s, s, c))
 yq, ybf = resstage.fused_res_stage(x, pk, s, n, 0.1)
 assert yq.shape == ybf.shape == x.shape
+
+from mit_driverless_cv_traininginfra_tpu_torch.probes import BY_NAME, PLAIN
+for name in ("tail", "P22", "P16", "Q16", "D3", "P13c"):
+    probe = BY_NAME[name]
+    probe.run(probe.build("cpu", small=True), PLAIN)
+for mod in ("ops.tail_conv", "ops.window_resample", "ops.int8_contract",
+            "ops.strided_map", "probes.mosaic", "probes.crop", "probes.tail_conv1",
+            "probes.run"):
+    assert "mit_driverless_cv_traininginfra_tpu_torch." + mod in sys.modules, mod
 
 assert "jax" not in sys.modules, "the port imported jax"
 jax_pkg = [m for m in sys.modules
