@@ -17,13 +17,19 @@ hand-written CUDA kernels:
 3. kernels: K1 (ROI crop), K2 (soft-argmax) and K3 (threshold + top-k +
    NMS) against their plain PyTorch versions on the card, at the shapes
    the main path gives them, in f32 and bf16, with CUDA-event timings;
+   K1 also: the plain crop's coordinates on the card bit-equal to the
+   CPU's, its bf16 crops bit-equal to the plain crop on the CPU, one
+   device kernel a call and its device time (``torch.profiler``), and the
+   host microseconds of a call;
 4. bf16 slice: the f32 pipeline on the card against the same port on CPU
    copies (plain path), then a bf16 ``TwoStageServer`` that warms up and
    answers requests — one of them a short batch that pads — while K1-K3's
    launch counters must grow;
 5. int8: the int8 models are calibrated and quantized on the card; K4
    (fused entry block) against its plain version at the main path's
-   (8, 208, 208, 128), bit for bit, with its registers and timings; the
+   (8, 208, 208, 128), bit for bit, with its registers, the integer
+   tensor-core instructions of its SASS (``cuobjdump``; none fails),
+   kernels a call, device time and timings; the
    int8 pipeline on the card against CPU copies (K4's output bit-equal,
    masks equal); then an int8 ``TwoStageServer`` whose K1-K4 launch
    counters must all grow, with frames/s beside the bf16 server's;
@@ -49,7 +55,8 @@ hand-written CUDA kernels:
 
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
-its own path's run (counters set to 0 just before it): K1-K4 over the
+its own path's run (counters set to 0 just before it; K1's and K4's rows
+also carry ``device_ms`` and ``kernels_per_call``): K1-K4 over the
 int8 server's requests, K5 over its stage path, the four probe kernels
 over the probe path, K2's backward over the training steps. ``bound_ms``
 is the larger of the row's bytes over 3.35 TB/s and its operations over
@@ -152,6 +159,76 @@ def paired_ms(kernel, plain, iters: int = 50) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+# the host calls that put work on the card: kernel launches, copies, fills
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy", "cudaMemset")
+
+
+def device_kernels(fn, calls: int) -> tuple[list[str], float, float]:
+    """What ``calls`` calls of ``fn`` put on the card, by ``torch.profiler``:
+    the names of the device activities recorded, the host's launch, copy
+    and fill calls per call, and the device milliseconds per call (the mean
+    recorded activity times the launches per call). The count comes from
+    the host's calls because CUPTI now and then leaves one device activity
+    out of a session's record (K4: 19 of 20 in some processes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            break
+    host = sum(e.name in LAUNCH_CALLS for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU)
+    per_call = host / calls
+    mean_ms = sum(e.time_range.elapsed_us() for e in evs) / max(len(evs), 1) / 1e3
+    return [e.name for e in evs], per_call, mean_ms * per_call
+
+
+def sass_count(kernel: str, opcodes=("IMMA", "IGMMA")) -> dict | None:
+    """How many instructions of each opcode the built library's SASS holds
+    in the functions whose name contains ``kernel`` (``cuobjdump -sass``);
+    None where the toolkit has no cuobjdump."""
+    from pathlib import Path
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import _lib
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_lib.build())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, current = dict.fromkeys(opcodes, 0), ""
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+        elif kernel in current:
+            for op in opcodes:
+                counts[op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn``, queued without a sync (the
+    wrapper's Python and the launches it issues)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -206,8 +283,10 @@ def crop_boxes(rng, n: int) -> np.ndarray:
 
 
 def phase_k1(dev, rows: dict) -> None:
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import _lib
     from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_crop import roi_crop
     from mit_driverless_cv_traininginfra_tpu_torch.ops.image import (
+        _crop_coords,
         roi_crop_bilinear_indexed,
     )
 
@@ -217,6 +296,15 @@ def phase_k1(dev, rows: dict) -> None:
     boxes = torch.from_numpy(crop_boxes(rng, CROP_N)).to(dev)
     fidx = torch.from_numpy(rng.integers(0, B_SERVE, CROP_N)).to(dev)
     finite = torch.isfinite(boxes).all(dim=1)
+    # the plain crop's coordinates on the card are the CPU's bits (K1
+    # computes its own, as the CPU does)
+    coords = [c.cpu() for c in _crop_coords(boxes, 80, 80, SIZE, SIZE)]
+    coords_cpu = _crop_coords(boxes.cpu(), 80, 80, SIZE, SIZE)
+    same = all(torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        a.nan_to_num().view(torch.int32), b.nan_to_num().view(torch.int32))
+        for a, b in zip(coords, coords_cpu))
+    log(f"K1 _crop_coords card vs CPU (N={CROP_N}, 80×80): bit-equal {same}")
+    check(same, "the plain crop's coordinates differ between card and CPU")
     errs = []
     for dt in (torch.float32, torch.bfloat16):
         frames = frames32.to(dt)
@@ -227,19 +315,41 @@ def phase_k1(dev, rows: dict) -> None:
         n_diff = int((got[finite] != ref[finite]).sum())
         k_ms, p_ms = paired_ms(lambda: roi_crop(frames, boxes, fidx),
                                lambda: roi_crop_bilinear_indexed(frames, boxes, fidx))
+        kernels, per_call, dev_ms = device_kernels(lambda: roi_crop(frames, boxes, fidx), 20)
         log(f"K1 roi_crop {str(dt)[6:]}: N={CROP_N} max|d|={err!r} "
             f"differing={n_diff}/{got[finite].numel()} kernel {k_ms!r} ms "
-            f"plain {p_ms!r} ms")
+            f"(device {dev_ms!r} ms, {per_call!r} launches a call, {len(kernels)} "
+            f"device activities recorded: {sorted(set(kernels))}) plain {p_ms!r} ms")
         # bf16: the tap products are exact in f32, so both versions round
         # the same sums; f32: the plain GEMM may add the two taps in
         # another order (≤ 1 ulp of a [0, 1] pixel)
         check(err <= (0.0 if dt == torch.bfloat16 else 2 ** -23),
               f"K1 {dt} disagrees: {err}")
+        check(per_call == 1 and kernels and all("roi_crop" in k for k in kernels),
+              f"K1 is not one device kernel a call: {per_call}, {kernels}")
         errs.append(err)
         if dt == torch.bfloat16:
+            # and against the plain crop on the CPU: the same bits
+            ref_cpu = roi_crop_bilinear_indexed(frames.cpu(), boxes.cpu(), fidx.cpu())
+            n_cpu = int((got[finite].cpu() != ref_cpu[finite.cpu()]).sum())
+            log(f"K1 bf16 vs the plain crop on the CPU: differing {n_cpu}")
+            check(n_cpu == 0, "K1 differs from the plain crop on the CPU")
+            # the host's cost of a call, and of what the wrapper no longer does
+            ctx = torch.cuda.device(dev)
+
+            def old_host():
+                _crop_coords(boxes, 80, 80, SIZE, SIZE)
+                fidx.to(torch.int32)
+                with ctx:
+                    _lib.stream_ptr(dev)
+
+            log(f"K1 host µs a call: roi_crop {host_us(lambda: roi_crop(frames, boxes, fidx))!r}; "
+                f"what it no longer does (coordinates, index cast, device "
+                f"context) {host_us(old_host)!r}")
             # bilinear: 4 taps, 4 products and 3 sums per output value
             b = bound(nbytes(frames, boxes, fidx, got), 8 * got.numel(), "f32")
-            rows["roi_crop"].update(ms=k_ms, plain_ms=p_ms,
+            rows["roi_crop"].update(ms=k_ms, plain_ms=p_ms, device_ms=dev_ms,
+                                    kernels_per_call=per_call,
                                     library_ms=grid_sample_ms(frames, boxes, fidx), **b)
     rows["roi_crop"]["max_abs_err"] = max(errs)
 
@@ -596,19 +706,29 @@ def phase_k4(dev, rows: dict, entry_q, frames_np) -> None:
     n_diff_e = int((got_e != ref_e).sum())
     k_ms, p_ms = paired_ms(lambda: entry.fused_entry_block(hq, ep, SLOPE),
                            lambda: entry._entry_rest(hq, ep, SLOPE))
+    kernels, per_call, dev_ms = device_kernels(
+        lambda: entry.fused_entry_block(hq, ep, SLOPE), 20)
     for line in ptxas_lines("entry_block"):
         log(f"K4 ptxas: {line}")
+    sass = sass_count("entry_block_kernel")
+    log(f"K4 SASS integer tensor-core instructions: {sass}")
     log(f"K4 entry_block int8: hq {tuple(hq.shape)} → {tuple(got.shape)} "
         f"differing={n_diff}/{got.numel()} (edges ±127: {n_diff_e}) "
-        f"kernel {k_ms!r} ms plain {p_ms!r} ms")
+        f"kernel {k_ms!r} ms (device {dev_ms!r} ms, {per_call!r} launches a call, "
+        f"{len(kernels)} device activities recorded) plain {p_ms!r} ms")
     check(n_diff == 0 and n_diff_e == 0, "K4 differs from its plain version")
+    check(sass is None or sass["IMMA"] + sass["IGMMA"] > 0,
+          "K4's SASS holds no integer tensor-core instruction")
+    check(per_call == 1 and kernels and all("entry_block" in k for k in kernels),
+          f"K4 is not one device kernel a call: {per_call}, {kernels}")
     # int8 multiply-adds per output position: conv2p 4·128·64, 1×1 64·32,
     # 3×3 9·32·64
     ops = 2 * B_SERVE * (SIZE // 2) ** 2 * (4 * 128 * 64 + 64 * 32 + 9 * 32 * 64)
-    b = bound(nbytes(hq, got, ep["w2_k4"], ep["w1x1_k4"], ep["w3_k4"]), ops, "int8")
+    b = bound(nbytes(hq, got, ep["w2_tc"], ep["w1x1_tc"], ep["w3_tc"]), ops, "int8")
     log(f"K4 bound {b['bound_ms']!r} ms ({b['bound_by']}), "
-        f"{ops / k_ms / 1e9:.1f} TOP/s")
+        f"{ops / k_ms / 1e9:.1f} TOP/s a call, {ops / dev_ms / 1e9:.1f} TOP/s on the device")
     rows["entry_block"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **b,
+                               device_ms=dev_ms, kernels_per_call=per_call,
                                max_abs_err=max(max_abs(got, ref), max_abs(got_e, ref_e)))
 
 
@@ -1123,7 +1243,7 @@ def main() -> int:
     check("jax" not in sys.modules, "jax was imported")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    check(all(set(r) == set(keys) for r in rows.values()),
+    check(all(set(keys) <= set(r) for r in rows.values()),
           f"a kernel row lacks a key: {[sorted(r) for r in rows.values()]}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {

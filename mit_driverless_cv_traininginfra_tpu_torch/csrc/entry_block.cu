@@ -10,61 +10,89 @@
 //   resq = q8(b3 + out2)                      the shortcut add in bf16
 //
 // with the rounding points of ops/entry.py:_entry_rest, its plain version,
-// which this kernel equals bit for bit: int32 sums (__dp4a over channel
-// quads); acc·scale then +b as two f32 roundings (-fmad=false keeps them
-// apart); a bf16 cast; leaky with the slope already rounded to bf16 (the
-// product of two bf16 values is exact in f32, so it rounds once);
-// requant = clamp(rintf(x·sx_inv), -127, 127), rintf rounding half to even.
+// which this kernel equals bit for bit: exact int32 sums; acc·scale then
+// +b as two f32 roundings (-fmad=false keeps them apart); a bf16 cast;
+// leaky with the slope already rounded to bf16 (the product of two bf16
+// values is exact in f32, so it rounds once); requant = clamp(rintf(x·
+// sx_inv), -127, 127), rintf rounding half to even.
 //
-// On the card: one block of 512 threads per (16×16 output tile, image).
-// The TPU kernel's 16-row bands, scratch layout and rank-3 dots were
-// Mosaic constraints and are not copied. A tile reads a 19×19 hq window
-// (halo 2 above/left, 1 below/right, zeros outside the frame), computes
-// out2 and t on the 18×18 ring around the tile (halos recomputed by the
-// neighbours), then the 16×16 outputs; everything stays in shared memory:
-// weights 52 KB (laid out once by ops/entry.py:pack_entry so that one
-// 16-byte load holds 16 input channels of one output channel), hq 45 KB (reused for q8(out2)
-// and q8(t) once conv2p is done), out2 in bf16 40.5 KB. In each product a
-// lane owns output channels lane and lane + 32 and a warp walks four
-// positions at a time: one broadcast load of 16 activation bytes feeds
-// eight __dp4a. Bound: the int8 dot products — 4.0 M __dp4a per tile, as
-// CUDA-core integer math (the tensor cores, wgmma and TMA are later work).
+// Bound: the int8 products, 36.9 G multiply-adds·2 at (8, 208, 208, 128)
+// (about 47 G with the halos each tile recomputes), against 1,979 TOP/s of
+// the int8 tensor cores; the bytes (hq in, resq out, 29 MB) take 8.8 µs.
+// The design runs the three convolutions as implicit GEMMs per 16×16 output
+// tile on the tensor cores (s8·s8→s32; sums of at most 512 products of
+// |127|² cannot overflow, so they are the same integers in any order):
+//
+//   conv2p  M = 324 ring positions (18×18), K = 4·128, N = 64   wgmma m64n32k32
+//   1×1     M = 324,                        K = 64,    N = 32   mma.sync m16n8k32
+//   3×3     M = 256 (4 output rows an m64), K = 9·32,  N = 64   wgmma m64n32k32
+//
+// A comes from shared memory by ldmatrix into registers, each lane pointing
+// at its own row, so the im2col is addressing only; the A layouts are
+// XOR-swizzled in 16-byte chunks so that the eight rows of an 8×8 matrix
+// fall in eight bank groups (hq: 128 B a position, chunk ^= pos & 7;
+// q8(out2): 64 B, chunk ^= (pos >> 1) & 3; q8(t): 32 B, chunk ^= (pos >> 2)
+// & 1). ops/entry.py:pack_entry lays B out once as the kernel reads it: for
+// wgmma, K-major 8×16-byte core matrices that a shared-memory descriptor
+// names (conv2p, 3×3); for mma.sync, each lane's fragment registers (1×1).
+// A warpgroup's job is one m64 tile against half of N; the 1×1's job is one
+// m-tile of 16 against 16 channels, 42 of them over 16 warps.
+//
+// Persistent blocks: one block of 512 threads per SM walks over the (image,
+// tile) pairs; it loads the 52 KB of weights once, and prefetches the next
+// tile's 19×19×128 hq window with cp.async into a second buffer while it
+// computes the current one. Shared memory: weights 52 KB, 2 × 45 KB of hq,
+// out2 in bf16 on the 16×16 interior 32 KB (the ring's halo only feeds the
+// 1×1, as q8), q8(out2) 20 KB (reused to stage the output tile, stored
+// with 16-byte writes), q8(t) 10 KB, scales 1.3 KB: 206 KB of 227.
+//
+// What bounds it now (tools/k4_phases.py, H100 80GB HBM3 at 700 W): a
+// tile's cycles go to conv2p 45%, the 1×1 17%, the 3×3 26%, the window
+// wait 8% and the output copy 3%. The same kernel without its epilogues
+// (about 47k values a tile dequantized, leaky'd and requantized on the CUDA
+// cores) takes three quarters of the time; the rest is the products with
+// their ldmatrix loads of A, which neither mma.sync in place of wgmma nor
+// m64n64 in place of m64n32 made faster, and a barrier after each phase.
 #include <atomic>
 
 #include "common.cuh"
 
 namespace mdcv {
 
-constexpr int kTile = 16;              // output rows and columns per block
+constexpr int kTile = 16;              // output rows and columns per tile
 constexpr int kHq = kTile + 3;         // 19: hq window side
-constexpr int kMid = kTile + 2;        // 18: out2 / t side
+constexpr int kMid = kTile + 2;        // 18: out2 / t side (the ring)
+constexpr int kRing = kMid * kMid;     // 324
+constexpr int kRingTiles = (kRing + 15) / 16;  // 21
 constexpr int kCin = 128, kC2 = 64, kCt = 32;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / kWarp;
-constexpr int kQuad = 4;               // positions per warp step
 
-constexpr int kW2Bytes = 4 * kCin * kC2;            // [tap 4][c16 8][n 64][16]
-constexpr int kW1Bytes = kC2 * kCt;                 // [c16 4][m 32][16]
-constexpr int kW3Bytes = 9 * kCt * kC2;             // [tap 9][c16 2][n 64][16]
-constexpr int kHqBytes = kHq * kHq * kCin;          // then q8(out2), q8(t)
-constexpr int kOut2Bytes = kMid * kMid * kC2 * 2;   // bf16
-constexpr int kQ2Bytes = kMid * kMid * kC2;
+// packed B: conv2p and 3×3 as wgmma tiles [k-step][n-half][n-group 4]
+// [k-chunk 2][8 rows][16 bytes], 1 KB each; the 1×1 as mma.sync fragments
+// [k-step][pair q][lane][16 bytes]
+constexpr int kW2Bytes = 16 * 2 * 1024;        // K 512 = 16 k-steps, N 64
+constexpr int kW1Bytes = 2 * 2 * 32 * 16;      // K 64, N 32
+constexpr int kW3Bytes = 9 * 2 * 1024;         // K 288, N 64
+constexpr int kHqBytes = kHq * kHq * kCin;
+constexpr int kOut2Bytes = kTile * kTile * kC2 * 2;  // bf16, interior only
+constexpr int kQ2Bytes = kRing * kC2;
+constexpr int kTBytes = kRing * kCt;
+constexpr int kParams = 2 * kC2 + 2 * kCt + 2 * kC2 + 4;  // scales, biases, sx
+
 constexpr int kOffW1 = kW2Bytes;
 constexpr int kOffW3 = kOffW1 + kW1Bytes;
 constexpr int kOffHq = kOffW3 + kW3Bytes;
-constexpr int kOffOut2 = kOffHq + kHqBytes;
-constexpr int kSmem = kOffOut2 + kOut2Bytes;        // 140,928 bytes
-static_assert(kQ2Bytes + kMid * kMid * kCt <= kHqBytes, "q8 buffers overflow hq");
-static_assert(kOffHq % 16 == 0 && kOffOut2 % 16 == 0 && kQ2Bytes % 16 == 0,
+constexpr int kOffOut2 = kOffHq + 2 * kHqBytes;
+constexpr int kOffQ2 = kOffOut2 + kOut2Bytes;
+constexpr int kOffT = kOffQ2 + kQ2Bytes;
+constexpr int kOffPar = kOffT + kTBytes;
+constexpr int kSmem = kOffPar + kParams * 4;  // 210,832 bytes
+static_assert(kSmem <= 232448, "shared memory");
+static_assert(kHqBytes % 16 == 0 && kOffHq % 16 == 0 && kOffOut2 % 16 == 0 &&
+                  kOffQ2 % 16 == 0 && kOffT % 16 == 0 && kOffPar % 16 == 0,
               "16-byte alignment of the shared buffers");
-static_assert((kMid * kMid) % kQuad == 0 && (kTile * kTile) % kQuad == 0, "quads");
-
-__device__ __forceinline__ int dot16(const int4 a, const int4 w, int acc) {
-  acc = __dp4a(a.x, w.x, acc);
-  acc = __dp4a(a.y, w.y, acc);
-  acc = __dp4a(a.z, w.z, acc);
-  return __dp4a(a.w, w.w, acc);
-}
+static_assert(kTile * kTile * kC2 <= kQ2Bytes, "the output tile is staged in q8(out2)");
 
 __device__ __forceinline__ int8_t q8(float v, float sx_inv) {
   const float r = rintf(__fmul_rn(v, sx_inv));
@@ -79,6 +107,93 @@ __device__ __forceinline__ __nv_bfloat16 deq_leaky(int acc, float scale, float b
   return y32 >= 0.f ? y : __float2bfloat16_rn(__fmul_rn(__bfloat162float(y), slope));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the A fragment of a 16×32 int8 tile: lane l points at row (l & 7) +
+// ((l >> 3) & 1)·8, bytes 16·(l >> 4) of it
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&a)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// not volatile: a pure register operation, free to move between loads
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], int b0, int b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// wgmma m64n32k32 s8·s8→s32: D (this warp's 16 rows × 32) += A (this warp's
+// 16×32 fragment, registers) · B (32×32, K-major core matrices in shared
+// memory, described by desc); accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_n32(int (&d)[4][4], const uint32_t (&a)[4], uint64_t desc,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]), "+r"(d[1][0]),
+        "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]), "+r"(d[2][0]), "+r"(d[2][1]),
+        "+r"(d[2][2]), "+r"(d[2][3]), "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]),
+        "+r"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps a register's value where the asynchronous wgmma reads or writes it:
+// the compiler may neither reuse nor read it across this point
+__device__ __forceinline__ void keep(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+constexpr int kLBO = 128, kSBO = 256;  // K-adjacent, N-adjacent core matrices
+// the shared-memory descriptor of a K-major B tile without swizzle: 8×16-byte
+// core matrices, [n-group][k-chunk][8 rows][16 bytes]
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(kLBO >> 4) << 16) |
+         (uint64_t(kSBO >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n"); }
+
+struct TileAt {
+  int img, r0, c0;
+};
+
+__device__ __forceinline__ TileAt tile_at(int t, int tiles_y, int tiles_x) {
+  const int per = tiles_y * tiles_x, rem = t % per;
+  return {t / per, (rem / tiles_x) * kTile, (rem % tiles_x) * kTile};
+}
+
+// the 19×19×128 hq window of a tile (origin 2 above and left of it, zeros
+// outside the frame), swizzled, by cp.async
+__device__ __forceinline__ void load_window(const int8_t* __restrict__ hq, unsigned char* buf,
+                                            TileAt tl, int H, int W) {
+  const int8_t* src = hq + size_t(tl.img) * H * W * kCin;
+  for (int i = threadIdx.x; i < kHq * kHq * (kCin / 16); i += kThreads) {
+    const int pos = i >> 3, chunk = i & 7;
+    const int y = tl.r0 - 2 + pos / kHq, x = tl.c0 - 2 + pos % kHq;
+    const bool in = y >= 0 && y < H && x >= 0 && x < W;
+    const int8_t* g = in ? src + (size_t(y) * W + x) * kCin + chunk * 16 : src;
+    cp_async16(buf + pos * kCin + ((chunk ^ (pos & 7)) << 4), g, in ? 16 : 0);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
     entry_block_kernel(const int8_t* __restrict__ hq, const int4* __restrict__ w2p,
                        const float* __restrict__ w2s, const float* __restrict__ w2b,
@@ -86,140 +201,224 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const float* __restrict__ w1b, const int4* __restrict__ w3p,
                        const float* __restrict__ w3s, const float* __restrict__ w3b,
                        const float* __restrict__ sx, int8_t* __restrict__ out, int H, int W,
-                       float slope) {
+                       int tiles, float slope) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int4* sW2 = reinterpret_cast<int4*>(smem);
-  int4* sW1 = reinterpret_cast<int4*>(smem + kOffW1);
-  int4* sW3 = reinterpret_cast<int4*>(smem + kOffW3);
-  int4* sHq = reinterpret_cast<int4*>(smem + kOffHq);           // [19·19][8]
-  int4* sQ2 = sHq;                                              // [18·18][4]
-  int4* sT = reinterpret_cast<int4*>(smem + kOffHq + kQ2Bytes); // [18·18][2]
+  const unsigned char* sW2b = smem;            // wgmma B tiles, 1 KB each
+  const unsigned char* sW3b = smem + kOffW3;
+  const int4* sW1 = reinterpret_cast<const int4*>(smem + kOffW1);
   __nv_bfloat16* sOut2 = reinterpret_cast<__nv_bfloat16*>(smem + kOffOut2);
+  int8_t* sQ2 = reinterpret_cast<int8_t*>(smem + kOffQ2);
+  int8_t* sT = reinterpret_cast<int8_t*>(smem + kOffT);
+  float* par = reinterpret_cast<float*>(smem + kOffPar);
+  float *p2s = par, *p2b = par + kC2, *p1s = par + 2 * kC2, *p1b = p1s + kCt;
+  float *p3s = p1b + kCt, *p3b = p3s + kC2, *psx = p3b + kC2;
 
-  const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
-  const size_t img = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
-  const int n0 = lane, n1 = lane + kWarp;  // this lane's output channels
+  const int wg = warp >> 2, wl = warp & 3;                    // warpgroup, warp in it
+  const int g = lane >> 2, t4 = lane & 3;                     // C-fragment row, column pair
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;        // ldmatrix row
+  const int ahalf = lane >> 4;                                // ldmatrix 16-byte half
+  const int tiles_y = H / kTile, tiles_x = W / kTile;
 
-  for (int i = tid; i < kW2Bytes / 16; i += kThreads) sW2[i] = w2p[i];
-  for (int i = tid; i < kW1Bytes / 16; i += kThreads) sW1[i] = w1p[i];
-  for (int i = tid; i < kW3Bytes / 16; i += kThreads) sW3[i] = w3p[i];
-  const int8_t* src = hq + img * H * W * kCin;
-  for (int i = tid; i < kHq * kHq * (kCin / 16); i += kThreads) {
-    const int pos = i / (kCin / 16), chunk = i % (kCin / 16);
-    const int y = r0 - 2 + pos / kHq, x = c0 - 2 + pos % kHq;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (y >= 0 && y < H && x >= 0 && x < W)
-      v = *reinterpret_cast<const int4*>(src + (size_t(y) * W + x) * kCin + chunk * 16);
-    sHq[i] = v;
+  for (int i = tid; i < kW2Bytes / 16; i += kThreads) cp_async16(smem + i * 16, w2p + i, 16);
+  for (int i = tid; i < kW1Bytes / 16; i += kThreads)
+    cp_async16(smem + kOffW1 + i * 16, w1p + i, 16);
+  for (int i = tid; i < kW3Bytes / 16; i += kThreads)
+    cp_async16(smem + kOffW3 + i * 16, w3p + i, 16);
+  for (int i = tid; i < kC2; i += kThreads) {
+    p2s[i] = w2s[i], p2b[i] = w2b[i], p3s[i] = w3s[i], p3b[i] = w3b[i];
+    if (i < kCt) p1s[i] = w1s[i], p1b[i] = w1b[i];
+    if (i < 3) psx[i] = sx[i];
   }
-  __syncthreads();
+  int buf = 0;
+  if (blockIdx.x < tiles) load_window(hq, smem + kOffHq, tile_at(blockIdx.x, tiles_y, tiles_x), H, W);
+  cp_async_commit();
 
-  // ---- conv2p on the 18×18 ring: out2 (pos p ↔ frame (r0-1+p/18, c0-1+p%18))
-  {
-    const float sa = w2s[n0], sb = w2s[n1], ba = w2b[n0], bb = w2b[n1];
-    for (int p0 = warp * kQuad; p0 < kMid * kMid; p0 += kWarps * kQuad) {
-      int acc[kQuad][2] = {};
-      int base[kQuad];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TileAt tl = tile_at(t, tiles_y, tiles_x);
+    if (t + gridDim.x < tiles)
+      load_window(hq, smem + kOffHq + (buf ^ 1) * kHqBytes,
+                  tile_at(t + gridDim.x, tiles_y, tiles_x), H, W);
+    cp_async_commit();
+    cp_async_wait1();  // this tile's window (and, first, the weights) landed
+    // the weights, written by cp.async, are read by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const unsigned char* sHq = smem + kOffHq + buf * kHqBytes;
+    const float sx0 = psx[0], sx1 = psx[1], sx2 = psx[2];
+
+    // ---- conv2p on the ring: ring pos p ↔ frame (r0-1+p/18, c0-1+p%18);
+    // tap (Dy, Dx) = (tap/2, tap%2) reads the window at (p/18+Dy, p%18+Dx)
+    // a job: one m64 tile of ring rows against one n-half, per warpgroup
+    // (wgmma); this warp's 16 rows are m-tile 4·m64 + wl
+    for (int job = wg; job < 12; job += kWarps / 4) {
+      const int mt = (job >> 1) * 4 + wl, h = job & 1;
+      const int pa = min(mt * 16 + arow, kRing - 1);
+      const int base = (pa / kMid) * kHq + pa % kMid;
+      uint32_t a[16][4];
 #pragma unroll
-      for (int k = 0; k < kQuad; ++k) base[k] = ((p0 + k) / kMid) * kHq + (p0 + k) % kMid;
+      for (int s = 0; s < 16; ++s) {
+        const int tap = s >> 2, pos = base + (tap >> 1) * kHq + (tap & 1);
+        const int chunk = (s & 3) * 2 + ahalf;
+        ldmatrix_x4(smem_u32(sHq + pos * kCin + ((chunk ^ (pos & 7)) << 4)), a[s]);
+      }
+      int acc[4][4] = {};
+      wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {  // tap (Dy, Dx) = (t/2, t%2) reads hq (p-1+Dy, q-1+Dx)
-        const int toff = (t / 2) * kHq + t % 2;
-#pragma unroll 2
-        for (int c16 = 0; c16 < kCin / 16; ++c16) {
-          const int4 wa = sW2[(t * 8 + c16) * kC2 + n0];
-          const int4 wb = sW2[(t * 8 + c16) * kC2 + n1];
+      for (int s = 0; s < 16; ++s) wgmma_n32(acc, a[s], kmajor_desc(sW2b + (s * 2 + h) * 1024), s);
+      wgmma_commit();
+      wgmma_wait0();
 #pragma unroll
-          for (int k = 0; k < kQuad; ++k) {
-            const int4 a = sHq[(base[k] + toff) * (kCin / 16) + c16];
-            acc[k][0] = dot16(a, wa, acc[k][0]);
-            acc[k][1] = dot16(a, wb, acc[k][1]);
+      for (int s = 0; s < 16; ++s)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) keep(a[s][k]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) keep(acc[nt][k]);
+      // this lane's channels: n0 + 8·nt and the next one
+      const int n0 = h * 32 + t4 * 2;
+      float2 sc[4], bi[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        sc[nt] = *reinterpret_cast<const float2*>(p2s + n0 + nt * 8);
+        bi[nt] = *reinterpret_cast<const float2*>(p2b + n0 + nt * 8);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int p = mt * 16 + g + rr * 8;
+        if (p >= kRing) continue;
+        const int py = p / kMid, px = p - py * kMid;
+        const bool interior = py >= 1 && py <= kTile && px >= 1 && px <= kTile;
+        int8_t* q2 = sQ2 + p * kC2;
+        const int sw = (p >> 1) & 3;
+        __nv_bfloat16* o2 = sOut2 + ((py - 1) * kTile + px - 1) * kC2;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = n0 + nt * 8;
+          const __nv_bfloat16 v0 = deq_leaky(acc[nt][rr * 2], sc[nt].x, bi[nt].x, slope);
+          const __nv_bfloat16 v1 = deq_leaky(acc[nt][rr * 2 + 1], sc[nt].y, bi[nt].y, slope);
+          *reinterpret_cast<char2*>(q2 + (((n >> 4) ^ sw) << 4) + (n & 15)) =
+              make_char2(q8(__bfloat162float(v0), sx0), q8(__bfloat162float(v1), sx0));
+          if (interior) {
+            __nv_bfloat162 v;
+            v.x = v0, v.y = v1;
+            *reinterpret_cast<__nv_bfloat162*>(o2 + n) = v;
           }
         }
       }
+    }
+    __syncthreads();
+
+    // ---- 1×1 64→32 on the ring: t, zero outside the frame, quantized
+    // a job: one m-tile against one 16-channel half (mma.sync), 42 jobs
+    for (int job = warp; job < 2 * kRingTiles; job += kWarps) {
+      const int mt = job >> 1, hb = job & 1;
+      const int pa = min(mt * 16 + arow, kRing - 1);
+      int acc[2][4] = {};
 #pragma unroll
-      for (int k = 0; k < kQuad; ++k) {
-        sOut2[(p0 + k) * kC2 + n0] = deq_leaky(acc[k][0], sa, ba, slope);
-        sOut2[(p0 + k) * kC2 + n1] = deq_leaky(acc[k][1], sb, bb, slope);
+      for (int s = 0; s < 2; ++s) {
+        const int chunk = s * 2 + ahalf;
+        uint32_t a[4];
+        ldmatrix_x4(smem_u32(sQ2 + pa * kC2 + ((chunk ^ ((pa >> 1) & 3)) << 4)), a);
+        const int4 w = sW1[(s * 2 + hb) * 32 + lane];  // n-tiles 2hb, 2hb + 1
+        mma_s8(acc[0], a, w.x, w.y);
+        mma_s8(acc[1], a, w.z, w.w);
       }
-    }
-  }
-  __syncthreads();  // hq is dead from here: its space holds q8(out2), q8(t)
-
-  {
-    const float s0 = sx[0];
-    char4* q2 = reinterpret_cast<char4*>(sQ2);
-    for (int i = tid; i < kQ2Bytes / 4; i += kThreads) {
-      const __nv_bfloat16* v = sOut2 + i * 4;
-      q2[i] = make_char4(q8(__bfloat162float(v[0]), s0), q8(__bfloat162float(v[1]), s0),
-                         q8(__bfloat162float(v[2]), s0), q8(__bfloat162float(v[3]), s0));
-    }
-  }
-  __syncthreads();
-
-  // ---- 1×1 64→32 on the ring: t, zero outside the frame, quantized
-  {
-    const float s = w1s[lane], bi = w1b[lane], s1 = sx[1];
-    int8_t* tq = reinterpret_cast<int8_t*>(sT);
-    for (int p0 = warp * kQuad; p0 < kMid * kMid; p0 += kWarps * kQuad) {
-      int acc[kQuad] = {};
+      const int n0 = hb * 16 + t4 * 2;
+      float2 sc[2], bi[2];
 #pragma unroll
-      for (int c16 = 0; c16 < kC2 / 16; ++c16) {
-        const int4 w = sW1[c16 * kCt + lane];
-#pragma unroll
-        for (int k = 0; k < kQuad; ++k) acc[k] = dot16(sQ2[(p0 + k) * 4 + c16], w, acc[k]);
+      for (int nt = 0; nt < 2; ++nt) {
+        sc[nt] = *reinterpret_cast<const float2*>(p1s + n0 + nt * 8);
+        bi[nt] = *reinterpret_cast<const float2*>(p1b + n0 + nt * 8);
       }
 #pragma unroll
-      for (int k = 0; k < kQuad; ++k) {
-        const int p = p0 + k;
-        const int y = r0 - 1 + p / kMid, x = c0 - 1 + p % kMid;
-        int8_t v = 0;
-        if (y >= 0 && y < H && x >= 0 && x < W)
-          v = q8(__bfloat162float(deq_leaky(acc[k], s, bi, slope)), s1);
-        tq[p * kCt + lane] = v;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- 3×3 32→64 on the tile, shortcut add, requant, store
-  {
-    const float sa = w3s[n0], sb = w3s[n1], ba = w3b[n0], bb = w3b[n1], s2 = sx[2];
-    int8_t* dst = out + img * H * W * kC2;
-    for (int p0 = warp * kQuad; p0 < kTile * kTile; p0 += kWarps * kQuad) {
-      int acc[kQuad][2] = {};
-      int base[kQuad];
+      for (int rr = 0; rr < 2; ++rr) {
+        const int p = mt * 16 + g + rr * 8;
+        if (p >= kRing) continue;
+        const int py = p / kMid, px = p - py * kMid;
+        const int y = tl.r0 - 1 + py, x = tl.c0 - 1 + px;
+        const bool inside = y >= 0 && y < H && x >= 0 && x < W;
+        int8_t* tq = sT + p * kCt + (((n0 >> 4) ^ ((p >> 2) & 1)) << 4);  // one chunk
 #pragma unroll
-      for (int k = 0; k < kQuad; ++k) base[k] = ((p0 + k) / kTile) * kMid + (p0 + k) % kTile;
-#pragma unroll 3
-      for (int tap = 0; tap < 9; ++tap) {
-        const int toff = (tap / 3) * kMid + tap % 3;
-#pragma unroll
-        for (int c16 = 0; c16 < kCt / 16; ++c16) {
-          const int4 wa = sW3[(tap * 2 + c16) * kC2 + n0];
-          const int4 wb = sW3[(tap * 2 + c16) * kC2 + n1];
-#pragma unroll
-          for (int k = 0; k < kQuad; ++k) {
-            const int4 a = sT[(base[k] + toff) * 2 + c16];
-            acc[k][0] = dot16(a, wa, acc[k][0]);
-            acc[k][1] = dot16(a, wb, acc[k][1]);
-          }
+        for (int nt = 0; nt < 2; ++nt) {
+          const int n = n0 + nt * 8;
+          char2 v = make_char2(0, 0);
+          if (inside)
+            v = make_char2(
+                q8(__bfloat162float(deq_leaky(acc[nt][rr * 2], sc[nt].x, bi[nt].x, slope)), sx1),
+                q8(__bfloat162float(deq_leaky(acc[nt][rr * 2 + 1], sc[nt].y, bi[nt].y, slope)),
+                   sx1));
+          *reinterpret_cast<char2*>(tq + (n & 15)) = v;
         }
       }
+    }
+    __syncthreads();
+
+    // ---- 3×3 32→64 on the tile (m-tile = output row iy), shortcut add,
+    // requant; the int8 tile is staged in q8(out2)'s space
+    int8_t* stage = sQ2;
+    // a job: one m64 tile (four output rows) against one n-half, per
+    // warpgroup (wgmma); this warp's row is iy = 4·m64 + wl
+    for (int job = wg; job < 8; job += kWarps / 4) {
+      const int iy = (job >> 1) * 4 + wl, h = job & 1;
+      uint32_t a[9][4];
 #pragma unroll
-      for (int k = 0; k < kQuad; ++k) {
-        const int iy = (p0 + k) / kTile, ix = (p0 + k) % kTile;
-        const __nv_bfloat16* o2 = sOut2 + ((iy + 1) * kMid + ix + 1) * kC2;
-        const float ra = __bfloat162float(deq_leaky(acc[k][0], sa, ba, slope)) +
-                         __bfloat162float(o2[n0]);
-        const float rb = __bfloat162float(deq_leaky(acc[k][1], sb, bb, slope)) +
-                         __bfloat162float(o2[n1]);
-        int8_t* d = dst + (size_t(r0 + iy) * W + c0 + ix) * kC2;
-        d[n0] = q8(__bfloat162float(__float2bfloat16_rn(ra)), s2);
-        d[n1] = q8(__bfloat162float(__float2bfloat16_rn(rb)), s2);
+      for (int s = 0; s < 9; ++s) {  // tap (dy, dx) = (s/3, s%3)
+        const int pos = (iy + s / 3) * kMid + arow + s % 3;
+        ldmatrix_x4(smem_u32(sT + pos * kCt + ((ahalf ^ ((pos >> 2) & 1)) << 4)), a[s]);
+      }
+      int acc[4][4] = {};
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 9; ++s) wgmma_n32(acc, a[s], kmajor_desc(sW3b + (s * 2 + h) * 1024), s);
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int s = 0; s < 9; ++s)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) keep(a[s][k]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) keep(acc[nt][k]);
+      const int n0 = h * 32 + t4 * 2;
+      float2 sc[4], bi[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        sc[nt] = *reinterpret_cast<const float2*>(p3s + n0 + nt * 8);
+        bi[nt] = *reinterpret_cast<const float2*>(p3b + n0 + nt * 8);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int q = iy * kTile + g + rr * 8;  // interior position
+        const __nv_bfloat16* o2 = sOut2 + q * kC2;
+        int8_t* st = stage + q * kC2;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = n0 + nt * 8;
+          const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(o2 + n);
+          const float ra =
+              __bfloat162float(deq_leaky(acc[nt][rr * 2], sc[nt].x, bi[nt].x, slope)) +
+              __bfloat162float(r2.x);
+          const float rb =
+              __bfloat162float(deq_leaky(acc[nt][rr * 2 + 1], sc[nt].y, bi[nt].y, slope)) +
+              __bfloat162float(r2.y);
+          *reinterpret_cast<char2*>(st + n) =
+              make_char2(q8(__bfloat162float(__float2bfloat16_rn(ra)), sx2),
+                         q8(__bfloat162float(__float2bfloat16_rn(rb)), sx2));
+        }
       }
     }
+    __syncthreads();
+    // each output row of the tile is 16·64 contiguous bytes
+    for (int i = tid; i < kTile * kTile * kC2 / 16; i += kThreads) {
+      const int iy = i / (kTile * kC2 / 16), k = i % (kTile * kC2 / 16);
+      int4* dst = reinterpret_cast<int4*>(
+          out + ((size_t(tl.img) * H + tl.r0 + iy) * W + tl.c0) * kC2);
+      dst[k] = reinterpret_cast<const int4*>(stage)[i];
+    }
+    buf ^= 1;
   }
 }
 
@@ -233,20 +432,26 @@ extern "C" int mdcv_entry_block(const void* hq, const void* w2p, const void* w2s
   if (dtype != 2 || H <= 0 || W <= 0 || H % mdcv::kTile || W % mdcv::kTile)
     return int(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  // the 140 KB of dynamic shared memory needs an opt-in, once per device
+  // the 206 KB of dynamic shared memory needs an opt-in, and the grid is
+  // one block per SM: both once per device
   constexpr int kMaxDevices = 64;
-  static std::atomic<bool> smem_set[kMaxDevices];
+  static std::atomic<int> sms[kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return int(e);
   if (dev >= kMaxDevices) return int(cudaErrorInvalidDevice);
-  if (!smem_set[dev].load(std::memory_order_acquire)) {
+  int n_sm = sms[dev].load(std::memory_order_acquire);
+  if (n_sm == 0) {
     e = cudaFuncSetAttribute(mdcv::entry_block_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, mdcv::kSmem);
     if (e != cudaSuccess) return int(e);
-    smem_set[dev].store(true, std::memory_order_release);
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return int(e);
+    sms[dev].store(n_sm, std::memory_order_release);
   }
-  const dim3 grid(W / mdcv::kTile, H / mdcv::kTile, B);
+  const long long tiles = (long long)B * (H / mdcv::kTile) * (W / mdcv::kTile);
+  if (tiles > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  const int grid = tiles < n_sm ? int(tiles) : n_sm;
   mdcv::entry_block_kernel<<<grid, mdcv::kThreads, mdcv::kSmem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(hq), static_cast<const int4*>(w2p),
@@ -254,6 +459,6 @@ extern "C" int mdcv_entry_block(const void* hq, const void* w2p, const void* w2s
       static_cast<const int4*>(w1p), static_cast<const float*>(w1s),
       static_cast<const float*>(w1b), static_cast<const int4*>(w3p),
       static_cast<const float*>(w3s), static_cast<const float*>(w3b),
-      static_cast<const float*>(sx), static_cast<int8_t*>(out), H, W, slope);
+      static_cast<const float*>(sx), static_cast<int8_t*>(out), H, W, int(tiles), slope);
   return int(cudaGetLastError());
 }

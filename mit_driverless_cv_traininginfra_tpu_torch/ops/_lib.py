@@ -15,6 +15,7 @@ Every C entry point launches on the stream it is given and returns
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -41,14 +42,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C entry point → argtypes; every one returns a cudaError_t as int
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
-    # frames, sx, sy, fidx, out, N, B, H, W, C, out_h, out_w, dtype, stream
-    "mdcv_roi_crop": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # frames, boxes, box strides (2), box dtype, fidx, fidx stride, fidx
+    # dtype, out, N, B, H, W, C, out_h, out_w, dtype, stream
+    "mdcv_roi_crop": (_P, _P, _L, _L, _I, _P, _L, _I, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _P),
     # logits, xv, yv, probs, pts, M, HW, dtype, stream
     "mdcv_softargmax": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # boxes, scores, keys, out_boxes, out_scores, out_idx, out_keep,
     # B, N, k, conf, overlap, stream
     "mdcv_nms_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
-    # hq, w2, w2_scale, w2_b, w1x1, w1x1_scale, w1x1_b, w3im, w3_scale,
+    # hq, w2, w2_scale, w2_b, w1x1, w1x1_scale, w1x1_b, w3, w3_scale,
     # w3_b, sx, out, B, H, W, slope, dtype, stream
     "mdcv_entry_block": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _F, _I, _P),
@@ -74,6 +77,7 @@ SIGNATURES = {
 
 # each kernel checks the code it is given and refuses the others
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int32": 3}
+_CODE_OF = {getattr(torch, k): v for k, v in DTYPE_CODES.items()}
 
 
 def _sources() -> list[Path]:
@@ -167,11 +171,19 @@ def check(code: int, what: str) -> None:
 
 
 def dtype_code(dtype) -> int:
-    name = str(dtype).removeprefix("torch.")
-    if name not in DTYPE_CODES:
+    code = _CODE_OF.get(dtype)
+    if code is None:
         raise TypeError(f"kernels take {', '.join(DTYPE_CODES)}, got {dtype}")
-    return DTYPE_CODES[name]
+    return code
 
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device):
+    """``torch.cuda.device(device)``, or nothing when ``device`` is already
+    the current one (entering the context costs microseconds a call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

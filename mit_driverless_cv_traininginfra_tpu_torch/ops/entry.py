@@ -147,11 +147,31 @@ def quantize_entry(folded_params, amax: Dict[str, float]):
     return ep
 
 
-def _pack16(w, taps: int, cin: int, cout: int):
-    """(taps·cin, cout) int8 → (taps, cin/16, cout, 16): the 16 input
-    channels of one output channel side by side, as K4 reads them (one
-    16-byte load, four ``__dp4a``)."""
-    return w.reshape(taps, cin // 16, 16, cout).permute(0, 1, 3, 2).contiguous()
+def _pack_frag(w):
+    """(K, N) int8, K and N multiples of 32 → (K/32, N/32, 2, 32, 16): the
+    B fragments of ``mma.sync.m16n8k32`` in the order K4's lanes read them
+    (its 1×1). For k-step s and 32-column group h, lane l = 4g + t loads 16
+    bytes from pair q: the registers (b0, b1) of n-tile 2q, then of n-tile
+    2q + 1, where register r of n-tile j holds the four k rows
+    ``32s + 16r + 4t + (0..3)`` of column ``8(4h + j) + g``."""
+    K, N = w.shape
+    # w[k, n] with k = 32s + 16r + 4t + b and n = 32h + 16q + 8a + g
+    return (w.reshape(K // 32, 2, 4, 4, N // 32, 2, 2, 8)
+            .permute(0, 4, 5, 7, 2, 6, 1, 3)      # → [s, h, q, g, t, a, r, b]
+            .reshape(K // 32, N // 32, 2, 32, 16).contiguous())
+
+
+def _pack_wgmma(w):
+    """(K, N) int8, K and N multiples of 32 → (K/32, N/32, 4, 2, 8, 16): one
+    1 KB B tile of ``wgmma.m64n32k32`` per k-step s and 32-column half h,
+    K-major without swizzle — 8×16-byte core matrices [n-group][k-chunk],
+    row r of core matrix (ng, kc) holding the 16 k values ``32s + 16kc +
+    (0..15)`` of column ``32h + 8ng + r`` (K4's conv2p and 3×3)."""
+    K, N = w.shape
+    # w[k, n] with k = 32s + 16kc + b and n = 32h + 8ng + r
+    return (w.reshape(K // 32, 2, 16, N // 32, 4, 8)
+            .permute(0, 3, 4, 1, 5, 2)            # → [s, h, ng, kc, r, b]
+            .contiguous())
 
 
 def _col_major(w):
@@ -166,17 +186,17 @@ def pack_entry(ep):
     once when a model is built: the same scales and biases; conv1's
     weights as a ``_weight_matrix`` (``c1_wmat``); K4's three weights
     column-major for the plain version (``w2_mat`` (512, 64), ``w1x1_mat``
-    (64, 32), ``w3_mat`` (288, 64)) and in K4's 16-channel groups
-    (``w2_k4``, ``w1x1_k4``, ``w3_k4``)."""
+    (64, 32), ``w3_mat`` (288, 64)) and as K4's tensor cores read them
+    (``w2_tc``, ``w3_tc``: :func:`_pack_wgmma`; ``w1x1_tc``:
+    :func:`_pack_frag`)."""
     out = {k: v for k, v in ep.items()
            if k not in ("c1_wq", "w2", "w1x1", "w3im")}
     w2 = ep["w2"].reshape(4 * 128, 64)
     out.update(c1_wmat=_weight_matrix(ep["c1_wq"]),
                w2_mat=_col_major(w2), w1x1_mat=_col_major(ep["w1x1"]),
                w3_mat=_col_major(ep["w3im"]),
-               w2_k4=_pack16(w2, 4, 128, 64),
-               w1x1_k4=_pack16(ep["w1x1"], 1, 64, 32),
-               w3_k4=_pack16(ep["w3im"], 9, 32, 64))
+               w2_tc=_pack_wgmma(w2), w1x1_tc=_pack_frag(ep["w1x1"]),
+               w3_tc=_pack_wgmma(ep["w3im"]))
     return out
 
 
@@ -220,9 +240,10 @@ def _entry_rest(hq, ep, leaky_slope: float):
 # ---------------------------------------------------------------------------
 
 
-_K4_SHAPES = {"w2_k4": (4, 8, 64, 16), "w2_scale": (1, 64), "w2_b": (1, 64),
-              "w1x1_k4": (1, 4, 32, 16), "w1x1_scale": (1, 32),
-              "w1x1_b": (1, 32), "w3_k4": (9, 2, 64, 16), "w3_scale": (1, 64),
+_K4_SHAPES = {"w2_tc": (16, 2, 4, 2, 8, 16), "w2_scale": (1, 64),
+              "w2_b": (1, 64), "w1x1_tc": (2, 1, 2, 32, 16),
+              "w1x1_scale": (1, 32), "w1x1_b": (1, 32),
+              "w3_tc": (9, 2, 4, 2, 8, 16), "w3_scale": (1, 64),
               "w3_b": (1, 64), "sx": (1, 3)}
 
 
@@ -236,7 +257,7 @@ def _cuda_entry_block(hq, ep, leaky_slope: float):
     if H % TILE or W % TILE:
         raise ValueError(f"hq's H and W must be multiples of {TILE}: {H}×{W}")
     for k, shape in _K4_SHAPES.items():
-        want = torch.int8 if k.endswith("_k4") else torch.float32
+        want = torch.int8 if k.endswith("_tc") else torch.float32
         v = ep[k]
         if (tuple(v.shape) != shape or v.dtype != want
                 or v.device != hq.device or not v.is_contiguous()):
@@ -245,13 +266,17 @@ def _cuda_entry_block(hq, ep, leaky_slope: float):
                              f"on {v.device}")
     code = _lib.dtype_code(hq.dtype)
     x = hq.contiguous()
+    # cp.async copies 16-byte pieces of hq and of the packed weights
+    if any(t.data_ptr() % 16 for t in (x, ep["w2_tc"], ep["w1x1_tc"],
+                                       ep["w3_tc"])):
+        raise ValueError("hq and the packed weights must be 16-byte aligned")
     out = torch.empty((B, H, W, 64), dtype=torch.int8, device=hq.device)
-    with torch.cuda.device(hq.device):
+    with _lib.on_device(hq.device):
         rc = _lib.lib().mdcv_entry_block(
-            x.data_ptr(), ep["w2_k4"].data_ptr(), ep["w2_scale"].data_ptr(),
-            ep["w2_b"].data_ptr(), ep["w1x1_k4"].data_ptr(),
+            x.data_ptr(), ep["w2_tc"].data_ptr(), ep["w2_scale"].data_ptr(),
+            ep["w2_b"].data_ptr(), ep["w1x1_tc"].data_ptr(),
             ep["w1x1_scale"].data_ptr(), ep["w1x1_b"].data_ptr(),
-            ep["w3_k4"].data_ptr(), ep["w3_scale"].data_ptr(),
+            ep["w3_tc"].data_ptr(), ep["w3_scale"].data_ptr(),
             ep["w3_b"].data_ptr(), ep["sx"].data_ptr(), out.data_ptr(), B, H, W,
             _slope_in(leaky_slope, ACT_DTYPE), code,
             _lib.stream_ptr(hq.device))

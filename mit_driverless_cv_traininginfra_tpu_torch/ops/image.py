@@ -12,6 +12,8 @@ dtype, which is what the JAX einsums do on the TPU's matrix unit and what
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -23,9 +25,7 @@ def _crop_coords(boxes, out_h: int, out_w: int, H: int, W: int):
     x0, y0, x1, y1 = boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3]
     bw = torch.clamp(x1 - x0, min=1e-3)
     bh = torch.clamp(y1 - y0, min=1e-3)
-    dev = boxes.device
-    js = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) / out_w
-    is_ = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) / out_h
+    js, is_ = _centres(out_w, boxes.device), _centres(out_h, boxes.device)
     sx = x0[..., None] + bw[..., None] * js - 0.5
     sy = y0[..., None] + bh[..., None] * is_ - 0.5
     sx = _clip(sx, x0[..., None], x1[..., None] - 1.0)
@@ -33,6 +33,15 @@ def _crop_coords(boxes, out_h: int, out_w: int, H: int, W: int):
     sx = sx.clamp(0.0, W - 1.0)
     sy = sy.clamp(0.0, H - 1.0)
     return sx, sy
+
+
+@functools.cache
+def _centres(n: int, device):
+    """``(arange(n) + 0.5) / n`` in f32, the IEEE quotients. Built on the
+    CPU and copied once per device: on the card, PyTorch divides by a
+    Python scalar as ``a · (1/n)``, 1 ulp off the quotient at 16 of the 80
+    centres of an 80-wide crop."""
+    return ((torch.arange(n, dtype=torch.float32) + 0.5) / n).to(device)
 
 
 def _clip(x, lo, hi):

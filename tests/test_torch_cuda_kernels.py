@@ -39,6 +39,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
     softargmax_bwd,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.ops.image import (
+    _crop_coords,
     roi_crop_bilinear_indexed,
 )
 
@@ -72,6 +73,103 @@ def test_roi_crop_matches_plain(cuda, dtype):
     assert (got[:-1].float() - ref[:-1].float()).abs().max() <= tol
     with pytest.raises(TypeError):
         roi_crop(frames.half(), boxes, fidx)
+
+
+def _smoke():
+    """The smoke script's helpers (``crop_boxes``, ``device_kernels``,
+    ``sass_count``), imported from the repository root."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _test_boxes(n: int):
+    """``chip_smoke.crop_boxes`` (edge boxes, the last non-finite) in a
+    416² frame, plus a degenerate and an inverted box."""
+    boxes = _smoke().crop_boxes(np.random.default_rng(14), max(n, 8))
+    boxes[1] = [10, 10, 10.0005, 30]   # width below the 1e-3 floor
+    boxes[2] = [50, 40, 30, 20]        # x1 < x0, y1 < y0
+    return boxes
+
+
+def _same_bits_nan(a, b) -> bool:
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan())
+                and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+@pytest.mark.parametrize("out_hw", [(80, 80), (16, 24)])
+def test_crop_coords_on_the_card_match_the_cpu(cuda, out_hw):
+    """The plain crop's sampling coordinates are the CPU's (and so the JAX
+    package's) bits on the card too."""
+    boxes = torch.from_numpy(_test_boxes(64))
+    sx, sy = _crop_coords(boxes.to(cuda), *out_hw, 416, 416)
+    rx, ry = _crop_coords(boxes, *out_hw, 416, 416)
+    assert _same_bits_nan(sx.cpu(), rx) and _same_bits_nan(sy.cpu(), ry)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("N", [0, 1, 64, 1000])
+def test_roi_crop_bit_equal_at_every_size(cuda, N, C, idx_dtype):
+    """K1 against the plain crop in bf16, bit for bit on the finite boxes
+    (C = 2 takes the runtime-C instantiation; 1000 crops make more blocks
+    than one wave); one launch a call."""
+    rng = np.random.default_rng(N + C)
+    frames = torch.from_numpy(rng.uniform(0, 1, (3, 416, 416, C)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    boxes = torch.from_numpy(_test_boxes(N)[:N]).to(cuda)
+    fidx = torch.from_numpy(rng.integers(0, 3, N)).to(cuda, idx_dtype)
+    launches = roi_crop.launches
+    got = roi_crop(frames, boxes, fidx)
+    ref = roi_crop_bilinear_indexed(frames, boxes, fidx)
+    torch.cuda.synchronize()
+    assert roi_crop.launches == launches + 1
+    assert got.shape == (N, 80, 80, C) and got.dtype == torch.bfloat16
+    finite = torch.isfinite(boxes).all(dim=1)
+    assert torch.equal(got[finite].view(torch.int16), ref[finite].view(torch.int16))
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("field", [0, 1, 2, 3])
+def test_roi_crop_non_finite_box_fields_stay_in_bounds(cuda, field, value):
+    """A NaN or ±inf in any of the four box fields reads nothing outside
+    the frame (no fault at the sync); the other crops stay bit-equal."""
+    rng = np.random.default_rng(15)
+    frames = torch.from_numpy(rng.uniform(0, 1, (2, 64, 96, 3)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    boxes = torch.tensor([[3.5, 2.25, 60, 50], [0, 0, 96, 64], [10, 5, 40, 30.5]],
+                         device=cuda)
+    boxes[1, field] = value
+    fidx = torch.tensor([1, 0, 1], device=cuda)
+    got = roi_crop(frames, boxes, fidx, 16, 24)
+    ref = roi_crop_bilinear_indexed(frames, boxes, fidx, 16, 24)
+    torch.cuda.synchronize()
+    keep = [0, 2]
+    assert torch.equal(got[keep].view(torch.int16), ref[keep].view(torch.int16))
+    # what it does sample is a blend of [0, 1] pixels (or NaN)
+    assert bool((got[1].float().abs() <= 1.01).logical_or(got[1].isnan()).all())
+
+
+def test_roi_crop_takes_strided_bf16_boxes_and_one_kernel_a_call(cuda):
+    """bf16 boxes in a strided view (the pipeline's dtypes and layouts vary)
+    give the plain crop's bits, and the profiler sees exactly one launch per
+    call, of K1's kernel: no cast, copy or coordinate op reaches the card."""
+    rng = np.random.default_rng(16)
+    frames = torch.from_numpy(rng.uniform(0, 1, (8, 416, 416, 3)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    wide = torch.from_numpy(np.concatenate([_test_boxes(64)[:-1], np.zeros((63, 4), np.float32)],
+                                           1)).to(cuda, torch.bfloat16)
+    boxes = wide[:, :4]  # stride (8, 1)
+    fidx = torch.from_numpy(rng.integers(0, 8, 63)).to(cuda)
+    got = roi_crop(frames, boxes, fidx)
+    ref = roi_crop_bilinear_indexed(frames, boxes, fidx)
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    kernels, per_call, _ = _smoke().device_kernels(lambda: roi_crop(frames, boxes, fidx), 5)
+    assert per_call == 1 and kernels and all("roi_crop" in k for k in kernels), kernels
+    with pytest.raises(TypeError):
+        roi_crop(frames, boxes.double(), fidx)
 
 
 @pytest.mark.parametrize("shape", [(5, 13, 17), (3, 80, 80)])
@@ -152,11 +250,13 @@ def _entry_bundle(cuda, seed: int):
     return {k: v.to(cuda) for k, v in entry.pack_entry(ep).items()}, rng
 
 
-@pytest.mark.parametrize("B,H,W", [(2, 32, 48), (8, 208, 208)],
-                         ids=["small", "full"])
+@pytest.mark.parametrize("B,H,W", [(2, 32, 48), (1, 208, 208), (3, 208, 208),
+                                   (8, 208, 208)],
+                         ids=["small", "b1", "b3", "full"])
 def test_entry_block_bit_equal_to_plain(cuda, B, H, W):
     """K4 against ``_entry_rest`` on the card: every int8 equal, at a small
-    non-square shape and at the main path's (8, 208, 208, 128)."""
+    non-square shape and at 208² with B = 1, 3 (169 and 507 tiles: not
+    multiples of the 132 persistent blocks) and the main path's 8."""
     ep, rng = _entry_bundle(cuda, 5)
     frames = torch.from_numpy(rng.uniform(0, 1, (B, 2 * H, 2 * W, 3))
                               .astype(np.float32)).to(cuda, torch.bfloat16)
@@ -194,7 +294,25 @@ def test_entry_block_rejects_bad_shapes(cuda):
     with pytest.raises(ValueError):
         entry.fused_entry_block(torch.zeros((1, 32, 32, 128), dtype=torch.int8,
                                             device=cuda),
-                                {**ep, "w2_k4": ep["w2_k4"].cpu()}, 0.1)
+                                {**ep, "w2_tc": ep["w2_tc"].cpu()}, 0.1)
+
+
+def test_entry_block_runs_on_integer_tensor_cores(cuda):
+    """The built entry_block kernel's SASS holds integer tensor-core MMAs
+    (IMMA for mma.sync, IGMMA for wgmma), and a call is one kernel launch
+    and nothing else on the card."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import _lib
+
+    _lib.lib()
+    counts = _smoke().sass_count("entry_block_kernel")
+    if counts is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    assert counts["IMMA"] + counts["IGMMA"] > 0, counts
+    ep, rng = _entry_bundle(cuda, 17)
+    hq = torch.from_numpy(rng.integers(-127, 128, (2, 64, 64, 128), dtype=np.int8)).to(cuda)
+    kernels, per_call, _ = _smoke().device_kernels(
+        lambda: entry.fused_entry_block(hq, ep, 0.1), 3)
+    assert per_call == 1 and kernels and all("entry_block" in k for k in kernels), kernels
 
 
 def _stage_bundle(cuda, rng, C: int, n: int):

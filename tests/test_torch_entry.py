@@ -178,24 +178,233 @@ def test_zero_padding_at_frame_edges(bundles):
     assert torch.equal(got, entry._q8(b3 + out2, tep["sx"][0, 2]))
 
 
+def _read_frag(packed):
+    """Plain index map of K4's mma.sync B fragments (``m16n8k32``, one lane
+    at a time): packed (K/32, N/32, 2, 32, 16) → the (K, N) matrix. Lane
+    l = 4g + t holds, in pair q, register r of n-tile 2q + a in bytes
+    8a + 4r + (0..3): rows 32s + 16r + 4t + (0..3) of column
+    8(4h + 2q + a) + g."""
+    S, NH = packed.shape[:2]
+    p = packed.numpy()
+    w = np.zeros((32 * S, 32 * NH), np.int8)
+    for s in range(S):
+        for h in range(NH):
+            for q in range(2):
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for a in range(2):
+                        for r in range(2):
+                            for b in range(4):
+                                w[32 * s + 16 * r + 4 * t + b,
+                                  8 * (4 * h + 2 * q + a) + g] = \
+                                    p[s, h, q, lane, 8 * a + 4 * r + b]
+    return w
+
+
+LBO, SBO = 128, 256  # the kernel's wgmma descriptor: K- and N-adjacent core matrices
+
+
+def _wgmma_b(tile, n: int = 32):
+    """The 32×n B that K4's shared-memory descriptor (K-major, no swizzle)
+    names at ``tile``'s first byte: B[k, j] is the byte at
+    (j // 8)·SBO + (k // 16)·LBO + (j % 8)·16 + k % 16. n = 32 reads one
+    1 KB tile (m64n32k32), n = 64 the two halves of a k-step (m64n64k32)."""
+    flat = tile.reshape(-1)
+    b = np.zeros((32, n), np.int32)
+    for k in range(32):
+        for j in range(n):
+            b[k, j] = flat[(j // 8) * SBO + (k // 16) * LBO + (j % 8) * 16 + k % 16]
+    return b
+
+
+def _read_wgmma(packed):
+    """packed (K/32, N/32, 4, 2, 8, 16) → the (K, N) matrix, tile by tile."""
+    S, NH = packed.shape[:2]
+    p = packed.numpy()
+    w = np.zeros((32 * S, 32 * NH), np.int8)
+    for s, h in np.ndindex(S, NH):
+        w[32 * s:32 * s + 32, 32 * h:32 * h + 32] = _wgmma_b(p[s, h])
+    return w
+
+
 def test_pack_entry_layouts(bundles):
     """Each packed weight holds the bundle's integers in its consumer's
-    layout: column-major matrices for ``torch._int_mm``, 16-channel groups
-    for K4."""
+    layout: column-major matrices for ``torch._int_mm``, tensor-core B
+    tiles and fragments for K4, read back by a plain index map."""
     _, _, tep, tpk, _ = bundles
     assert not {"c1_wq", "w2", "w1x1", "w3im"} & set(tpk)
+    assert not [k for k in tpk if k.endswith("_k4")]
     w2 = tep["w2"].reshape(512, 64)
     for key, want in (("w2_mat", w2), ("w1x1_mat", tep["w1x1"]),
                       ("w3_mat", tep["w3im"])):
         assert torch.equal(tpk[key], want) and tpk[key].stride() == (1, want.shape[0])
     assert torch.equal(tpk["c1_wmat"], quantize._weight_matrix(tep["c1_wq"]))
-    # K4 group (tap, c16, n, j) holds input channel c16·16 + j of output n
-    assert torch.equal(tpk["w2_k4"][3, 5, 7, 9], w2[3 * 128 + 5 * 16 + 9, 7])
-    for key, want in (("w2_k4", w2), ("w1x1_k4", tep["w1x1"]),
-                      ("w3_k4", tep["w3im"])):
+    for key, mat, shape, read in (
+            ("w2_tc", "w2_mat", (16, 2, 4, 2, 8, 16), _read_wgmma),
+            ("w1x1_tc", "w1x1_mat", (2, 1, 2, 32, 16), _read_frag),
+            ("w3_tc", "w3_mat", (9, 2, 4, 2, 8, 16), _read_wgmma)):
         got = tpk[key]
-        assert got.is_contiguous() and got.shape[-1] == 16
-        assert torch.equal(got.permute(0, 1, 3, 2).reshape(want.shape[0], -1),
-                           want)
+        assert got.is_contiguous() and got.shape == shape
+        np.testing.assert_array_equal(read(got), tpk[mat].numpy())
     for key in ("w2_scale", "w1x1_b", "sx", "c1_sx_inv", "hq_sx_inv"):
         assert tpk[key] is tep[key]
+
+
+# ---------------------------------------------------------------------------
+# K4's tile and fragment order, in numpy: the shared-memory layouts with
+# their swizzles, the lanes' ldmatrix addresses, each warpgroup's and warp's
+# rows, and the packed B (wgmma tiles through the descriptor, mma.sync
+# fragments by lane), contracted in int32 as the kernel's products do.
+# ---------------------------------------------------------------------------
+
+HQ, MID, TILE = 19, 18, 16
+RING = MID * MID
+
+
+def _lane_rows():
+    """ldmatrix.x4: lane l points at row (l & 7) + ((l >> 3) & 1)·8, 16-byte
+    half l >> 4 of a 16×32 A tile."""
+    lane = np.arange(32)
+    return (lane & 7) + ((lane >> 3) & 1) * 8, lane >> 4
+
+
+def _ldmatrix(smem, addr):
+    """The 16×32 int8 A tile four 8×8 b16 matrices give, matrix i from the
+    rows at lanes 8i..8i+7: (rows 0-7, 8-15) × (bytes 0-15, 16-31)."""
+    rows = smem[addr[:, None] + np.arange(16)]  # (32 lanes, 16 bytes)
+    a = np.zeros((16, 32), np.int32)
+    a[0:8, 0:16], a[8:16, 0:16] = rows[0:8], rows[8:16]
+    a[0:8, 16:32], a[8:16, 16:32] = rows[16:24], rows[24:32]
+    return a
+
+
+def _b_pair(packed, s, q):
+    """(32 k, 16 n) mma.sync B of k-step s, n-tiles 2q and 2q + 1."""
+    p = packed[s, 0, q].numpy().reshape(8, 4, 2, 2, 4)  # g, t, a, r, b
+    return p.transpose(3, 1, 4, 2, 0).reshape(32, 16).astype(np.int32)
+
+
+def _conv2p_jobs():
+    """K4's conv2p jobs: (m64 tile, first column, columns) — job j of a
+    warpgroup's share is m64 tile j // 2 against n-half j % 2."""
+    for job in range(12):
+        yield job // 2, 32 * (job % 2), 32
+
+
+def _emulate_conv2p(hq, packed):
+    """Every tile's ring sums (B, H/16, W/16, 324, 64) of conv2p, job by
+    job (a warpgroup takes every fourth); warp wl of the group loads the 16
+    rows of m-tile 4·m64 + wl."""
+    B, H, W, _ = hq.shape
+    arow, ahalf = _lane_rows()
+    p = packed.numpy()
+    b64 = {s: _wgmma_b(p[s], 64) for s in range(16)}  # both halves of k-step s
+    out = np.zeros((B, H // TILE, W // TILE, RING, 64), np.int64)
+    pad = np.zeros((B, H + 3, W + 3, 128), np.int8)
+    pad[:, 2:H + 2, 2:W + 2] = hq
+    for b, ty, tx in np.ndindex(B, H // TILE, W // TILE):
+        win = pad[b, ty * TILE:ty * TILE + HQ, tx * TILE:tx * TILE + HQ]
+        win = win.reshape(HQ * HQ, 8, 16)
+        pos = np.arange(HQ * HQ)
+        smem = np.zeros(HQ * HQ * 128, np.int8)  # chunk ^= pos & 7
+        for c in range(8):
+            smem[(pos * 128 + ((c ^ (pos & 7)) << 4))[:, None] + np.arange(16)] = win[:, c]
+        for m64, n0, n in _conv2p_jobs():
+            for wl in range(4):
+                mt = m64 * 4 + wl
+                pa = np.minimum(mt * 16 + arow, RING - 1)
+                base = (pa // MID) * HQ + pa % MID
+                acc = np.zeros((16, n), np.int64)
+                for s in range(16):
+                    tap = s >> 2
+                    q = base + (tap >> 1) * HQ + (tap & 1)
+                    chunk = (s & 3) * 2 + ahalf
+                    bt = b64[s][:, n0:n0 + n]
+                    acc += _ldmatrix(smem, q * 128 + ((chunk ^ (q & 7)) << 4)) @ bt
+                rows = np.arange(mt * 16, mt * 16 + 16)
+                keep = rows < RING
+                out[b, ty, tx, rows[keep], n0:n0 + n] = acc[keep]
+    return out
+
+
+def _emulate_1x1(q2, packed):
+    """(324, 64) int8 ring → (324, 32) sums, q8(out2) stored as the conv2p
+    epilogue stores it (chunk ^= (p >> 1) & 3); a job is one m-tile against
+    16 channels."""
+    arow, ahalf = _lane_rows()
+    smem = np.zeros(RING * 64, np.int8)
+    p = np.arange(RING)
+    for n in range(64):
+        smem[p * 64 + (((n >> 4) ^ ((p >> 1) & 3)) << 4) + (n & 15)] = q2[:, n]
+    out = np.zeros((RING, 32), np.int64)
+    for job in range(42):
+        mt, hb = divmod(job, 2)
+        pa = np.minimum(mt * 16 + arow, RING - 1)
+        acc = np.zeros((16, 16), np.int64)
+        for s in range(2):
+            chunk = s * 2 + ahalf
+            a = _ldmatrix(smem, pa * 64 + ((chunk ^ ((pa >> 1) & 3)) << 4))
+            acc += a @ _b_pair(packed, s, hb)
+        rows = slice(mt * 16, min(mt * 16 + 16, RING))
+        out[rows, 16 * hb:16 * hb + 16] = acc[:rows.stop - rows.start]
+    return out
+
+
+def _emulate_3x3(tq, packed):
+    """(324, 32) int8 ring → (16, 16, 64) sums, q8(t) stored as the 1×1
+    epilogue stores it (chunk ^= (p >> 2) & 1); job j is output rows
+    4·(j // 2).. against n-half j % 2, its warp wl one row."""
+    arow, ahalf = _lane_rows()
+    p = packed.numpy()
+    b64 = {s: _wgmma_b(p[s], 64) for s in range(9)}
+    smem = np.zeros(RING * 32, np.int8)
+    pos = np.arange(RING)
+    for n in range(32):
+        smem[pos * 32 + (((n >> 4) ^ ((pos >> 2) & 1)) << 4) + (n & 15)] = tq[:, n]
+    out = np.zeros((TILE, TILE, 64), np.int64)
+    for job, wl in np.ndindex(8, 4):
+        iy, n0 = (job // 2) * 4 + wl, 32 * (job % 2)
+        acc = np.zeros((16, 32), np.int64)
+        for s in range(9):
+            q = (iy + s // 3) * MID + arow + s % 3
+            acc += _ldmatrix(smem, q * 32 + ((ahalf ^ ((q >> 2) & 1)) << 4)) @ b64[s][:, n0:n0 + 32]
+        out[iy, :, n0:n0 + 32] = acc
+    return out
+
+
+def test_fragment_order_conv2p_equals_int_conv(bundles):
+    """conv2p in K4's order over the packed weights equals ``_int_conv``'s
+    sums at every ring position inside the frame, ±127 on the borders."""
+    tpk = bundles[3]
+    rng = np.random.default_rng(8)
+    hq = rng.integers(-127, 128, (2, 32, 48, 128), dtype=np.int8)
+    hq[:, 0], hq[:, :, -1] = 127, -127
+    want = quantize._int_conv(torch.from_numpy(hq), tpk["w2_mat"], 64, 2, 2,
+                              padding=((1, 0), (1, 0))).numpy()
+    got = _emulate_conv2p(hq, tpk["w2_tc"])
+    assert np.abs(want).max() > 2 ** 15  # sums well past int16
+    for b, ty, tx in np.ndindex(got.shape[:3]):
+        y = ty * TILE - 1 + np.arange(RING) // MID
+        x = tx * TILE - 1 + np.arange(RING) % MID
+        inside = (y >= 0) & (y < 32) & (x >= 0) & (x < 48)
+        np.testing.assert_array_equal(got[b, ty, tx][inside],
+                                      want[b, y[inside], x[inside]])
+
+
+@pytest.mark.parametrize("conv", ["1x1", "3x3"])
+def test_fragment_order_ring_convs_equal_int_conv(bundles, conv):
+    """The 1×1 and the 3×3 in K4's order over the packed weights equal
+    ``_int_conv``'s sums on one 18×18 ring of int8 values."""
+    tpk = bundles[3]
+    rng = np.random.default_rng(9)
+    c_in = 64 if conv == "1x1" else 32
+    ring = rng.integers(-127, 128, (MID, MID, c_in), dtype=np.int8)
+    ring[0], ring[:, -1] = -127, 127
+    x = torch.from_numpy(ring[None])
+    if conv == "1x1":
+        want = quantize._int_conv(x, tpk["w1x1_mat"], 32, 1, 1).numpy()[0]
+        got = _emulate_1x1(ring.reshape(RING, 64), tpk["w1x1_tc"]).reshape(MID, MID, 32)
+    else:
+        want = quantize._int_conv(x, tpk["w3_mat"], 64, 3, 3).numpy()[0]
+        got = _emulate_3x3(ring.reshape(RING, 32), tpk["w3_tc"])
+    np.testing.assert_array_equal(got, want)
