@@ -16,11 +16,12 @@ hand-written CUDA kernels:
 2. build: compiles ``csrc/*.cu`` with nvcc and prints the seconds;
 3. kernels: K1 (ROI crop), K2 (soft-argmax) and K3 (threshold + top-k +
    NMS) against their plain PyTorch versions on the card, at the shapes
-   the main path gives them, in f32 and bf16, with CUDA-event timings;
-   K1 also: the plain crop's coordinates on the card bit-equal to the
-   CPU's, its bf16 crops bit-equal to the plain crop on the CPU, one
-   device kernel a call and its device time (``torch.profiler``), and the
-   host microseconds of a call;
+   the main path gives them, in f32 and bf16, with CUDA-event timings,
+   one device kernel a call and its device time (``torch.profiler``); K2
+   at 448 and 784 rows (capacity 64 and 112), K3 at B=8 and B=1; K1
+   also: the plain crop's coordinates on the card bit-equal to the CPU's,
+   its bf16 crops bit-equal to the plain crop on the CPU, and the host
+   microseconds of a call;
 4. bf16 slice: the f32 pipeline on the card against the same port on CPU
    copies (plain path), then a bf16 ``TwoStageServer`` that warms up and
    answers requests — one of them a short batch that pads — while K1-K3's
@@ -55,7 +56,7 @@ hand-written CUDA kernels:
 
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
-its own path's run (counters set to 0 just before it; K1's and K4's rows
+its own path's run (counters set to 0 just before it; the K1-K4 rows
 also carry ``device_ms`` and ``kernels_per_call``): K1-K4 over the
 int8 server's requests, K5 over its stage path, the four probe kernels
 over the probe path, K2's backward over the training steps. ``bound_ms``
@@ -380,29 +381,39 @@ def phase_k2(dev, rows: dict) -> None:
     )
 
     rng = np.random.default_rng(2)
-    m = 7 * CROP_N
-    z32 = torch.from_numpy(rng.normal(0, 3, (m, 80, 80)).astype(np.float32)).to(dev)
+    # 7 keypoint maps per crop: capacity 64 (the kernel checks' CROP_N) and
+    # 112, the serving capacity that tools/profile_serving.py profiles
+    z_all = torch.from_numpy(rng.normal(0, 3, (7 * 112, 80, 80)).astype(np.float32)).to(dev)
     errs = []
-    for dt in (torch.float32, torch.bfloat16):
-        z = z32.to(dt)
-        pts, probs = fused_softargmax(z)
-        pts_r, probs_r = _torch_softargmax(z)
-        e_pts = max_abs(pts, pts_r)
-        e_pr = max_abs(probs, probs_r)
-        # probs: f32 within 1e-6; bf16 also within one bf16 ulp (2^-8
-        # relative), where an f32 difference crosses a rounding boundary
-        pr_ok = torch.allclose(probs.float(), probs_r.float(), atol=1e-6,
-                               rtol=0.0 if dt == torch.float32 else 2 ** -8)
-        k_ms, p_ms = paired_ms(lambda: fused_softargmax(z),
-                               lambda: _torch_softargmax(z))
-        log(f"K2 softargmax {str(dt)[6:]}: M={m} max|d pts|={e_pts!r} "
-            f"max|d probs|={e_pr!r} kernel {k_ms!r} ms plain {p_ms!r} ms")
-        check(e_pts <= PTS_ATOL[dt] and pr_ok, f"K2 {dt} disagrees")
-        errs.append(e_pts)
-        if dt == torch.bfloat16:
-            # max, exp, sum, divide, two products and two sums per value
-            b = bound(nbytes(z, probs, pts), 8 * z.numel(), "f32")
-            rows["softargmax"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **b)
+    for m in (7 * CROP_N, 7 * 112):
+        for dt in (torch.float32, torch.bfloat16):
+            z = z_all[:m].to(dt)
+            pts, probs = fused_softargmax(z)
+            pts_r, probs_r = _torch_softargmax(z)
+            e_pts = max_abs(pts, pts_r)
+            e_pr = max_abs(probs, probs_r)
+            # probs: f32 within 1e-6; bf16 also within one bf16 ulp (2^-8
+            # relative), where an f32 difference crosses a rounding boundary
+            pr_ok = torch.allclose(probs.float(), probs_r.float(), atol=1e-6,
+                                   rtol=0.0 if dt == torch.float32 else 2 ** -8)
+            k_ms, p_ms = paired_ms(lambda: fused_softargmax(z),
+                                   lambda: _torch_softargmax(z))
+            kernels, per_call, dev_ms = device_kernels(lambda: fused_softargmax(z), 20)
+            log(f"K2 softargmax {str(dt)[6:]}: M={m} max|d pts|={e_pts!r} "
+                f"max|d probs|={e_pr!r} kernel {k_ms!r} ms (device {dev_ms!r} ms, "
+                f"{per_call!r} launches a call, {len(kernels)} device activities "
+                f"recorded: {sorted(set(kernels))}) plain {p_ms!r} ms")
+            check(e_pts <= PTS_ATOL[dt] and pr_ok, f"K2 {dt} M={m} disagrees")
+            check(per_call == 1 and kernels and all("softargmax" in k for k in kernels),
+                  f"K2 is not one device kernel a call: {per_call}, {kernels}")
+            errs.append(e_pts)
+            if dt == torch.bfloat16 and m == 7 * CROP_N:
+                # max, exp, sum, divide, two products and two sums per value
+                b = bound(nbytes(z, probs, pts), 8 * z.numel(), "f32")
+                rows["softargmax"].update(ms=k_ms, plain_ms=p_ms, device_ms=dev_ms,
+                                          kernels_per_call=per_call, library_ms=None, **b)
+            elif dt == torch.bfloat16:
+                rows["softargmax"]["device_ms_m784"] = dev_ms
     rows["softargmax"]["max_abs_err"] = max(errs)
 
 
@@ -434,8 +445,11 @@ def phase_k3(dev, rows: dict) -> None:
     conf, ovl = 0.8, 0.25
     boxes, scores = nms_inputs(np.random.default_rng(3), B_SERVE, N, conf)
     errs = []
-    for dt in (torch.float32, torch.bfloat16):
-        b, s = boxes.to(dev, dt), scores.to(dev, dt)
+    # the served batch and one frame (frame 2: ties), in both dtypes
+    for B, dt in ((B_SERVE, torch.float32), (B_SERVE, torch.bfloat16), (1, torch.float32),
+                  (1, torch.bfloat16)):
+        pick = slice(0, B) if B == B_SERVE else slice(2, 3)
+        b, s = boxes[pick].to(dev, dt), scores[pick].to(dev, dt)
         got = nms_topk(b, s, conf, MAX_DET, ovl)
         _, _, idx, _ = _cuda_nms_topk(b, s, conf, MAX_DET, ovl)
         ref_b, ref_s, ref_i, ref_k = _torch_nms_topk(b, s, conf, MAX_DET, ovl)
@@ -447,16 +461,26 @@ def phase_k3(dev, rows: dict) -> None:
                   max_abs(got[1][torch.isfinite(ref_s)], ref_s[torch.isfinite(ref_s)]))
         k_ms, p_ms = paired_ms(lambda: nms_topk(b, s, conf, MAX_DET, ovl),
                                lambda: _torch_nms_topk(b, s, conf, MAX_DET, ovl))
-        log(f"K3 nms_topk {str(dt)[6:]} inputs: B={B_SERVE} N={N} k={MAX_DET} "
-            f"slots_equal={same} kept/frame={ref_k.sum(1).tolist()} "
-            f"kernel {k_ms!r} ms plain {p_ms!r} ms")
-        check(same, f"K3 {dt}: slots differ from the plain version")
+        line = (f"K3 nms_topk {str(dt)[6:]} inputs: B={B} N={N} k={MAX_DET} "
+                f"slots_equal={same} kept/frame={ref_k.sum(1).tolist()} "
+                f"kernel {k_ms!r} ms plain {p_ms!r} ms")
+        check(same, f"K3 {dt} B={B}: slots differ from the plain version")
         errs.append(err)
-        if dt == torch.float32:
+        if dt == torch.float32:  # bf16 inputs add the wrapper's casts
+            kernels, per_call, dev_ms = device_kernels(
+                lambda: nms_topk(b, s, conf, MAX_DET, ovl), 20)
+            line += (f" (device {dev_ms!r} ms, {per_call!r} launches a call, "
+                     f"{len(kernels)} device activities recorded: {sorted(set(kernels))})")
+            check(per_call == 1 and kernels and all("nms_topk" in k for k in kernels),
+                  f"K3 is not one device kernel a call: {per_call}, {kernels}")
+        log(line)
+        if dt == torch.float32 and B == B_SERVE:
             # a threshold compare per candidate, ~20 operations per IoU pair
-            bd = bound(nbytes(b, s, *got, idx), B_SERVE * N + 20 * B_SERVE * MAX_DET ** 2,
-                       "f32")
-            rows["nms_topk"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **bd)
+            bd = bound(nbytes(b, s, *got, idx), B * N + 20 * B * MAX_DET ** 2, "f32")
+            rows["nms_topk"].update(ms=k_ms, plain_ms=p_ms, device_ms=dev_ms,
+                                    kernels_per_call=per_call, library_ms=None, **bd)
+        elif dt == torch.float32:
+            rows["nms_topk"]["device_ms_b1"] = dev_ms
     rows["nms_topk"]["max_abs_err"] = max(errs)
 
 

@@ -1,6 +1,5 @@
 // Shared helpers of the port's kernels: element types, NaN-propagating
-// min/max (jnp.maximum/torch.maximum semantics, unlike fmaxf), block
-// reductions.
+// min/max (jnp.maximum/torch.maximum semantics, unlike fmaxf), a block sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,35 +41,6 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   __syncthreads();
   float r = 0.f;
   for (int w = 0; w < nwarps; ++w) r += scratch[w];
-  return r;
-}
-
-__device__ __forceinline__ float block_max_nan(float v, float* scratch) {
-  for (int o = kWarp / 2; o > 0; o >>= 1)
-    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < nwarps; ++w) r = max_nan(r, scratch[w]);
-  return r;
-}
-
-__device__ __forceinline__ unsigned long long block_max_u64(unsigned long long v,
-                                                            unsigned long long* scratch) {
-  for (int o = kWarp / 2; o > 0; o >>= 1) {
-    unsigned long long other = __shfl_xor_sync(0xffffffffu, v, o);
-    v = other > v ? other : v;
-  }
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  unsigned long long r = scratch[0];
-  for (int w = 1; w < nwarps; ++w) r = scratch[w] > r ? scratch[w] : r;
   return r;
 }
 

@@ -5,14 +5,28 @@
 // runs max → exp → sum → normalise → two weighted sums on 64-row VMEM
 // tiles of the (M, H·W) logits.
 //
-// On the card: one block of 256 threads per row of H·W (6400 at 80×80), so
-// the M = 7·crops rows spread over all SMs. Three sweeps over the row —
-// max; exp and sum; normalise, store the probabilities and accumulate
-// E[x], E[y] — all in f32 whatever the logits dtype. Bound: bytes (one
-// read of the row per sweep, the later two from L1/L2, one write of the
-// probabilities) and the exp rate; the row never leaves the SM between
-// sweeps except through cache. The coordinate rows xv, yv are inputs built
-// on the host bit-equal to the JAX package's linspace grids.
+// Forward, on the card: one block per row of H·W (6400 at 80×80), whose
+// threads hold the whole row in registers — kPerThread (40) values each,
+// 160 threads at 6400 — read once as 16-byte vectors (8 bf16 or 4
+// f32), so the row is read from device memory once and the probabilities
+// written once, also as 16-byte vectors. A row whose length is not a
+// multiple of the vector (13×17, 1×7) is read and written element by
+// element with a masked tail; a row longer than the block's registers
+// takes the rest from memory again in each sweep. The coordinates are the
+// w-entry xs and h-entry ys tables in shared memory (xv[i] = xs[i % w],
+// yv[i] = ys[i / w] by construction, both bit-equal to the JAX package's
+// linspace grids), not two H·W rows; where w is a multiple of the vector,
+// a vector lies in one map row and reads its xs as 16 bytes and one ys.
+// Three block reductions — max, sum, then E[x] and E[y] together — each
+// through warp shuffles and one shared-memory step; the per-thread sums
+// are taken per vector first, so no chain is longer than a vector. All in
+// f32 whatever the logits' dtype: exp(z − m) is kept in the registers and
+// divided by the sum, as the plain version does. The max is fmaxf: a NaN
+// logit still makes every output NaN, through its exp and the sum. Bound:
+// bytes (the logits read and the probabilities written once) by the data
+// sheet; on the card the exp, the IEEE division and the products cost
+// ~30 instructions a value, so instruction throughput and latency hold
+// it.
 //
 // The backward replaces the XLA code of the same file's custom VJP
 // (pallas_kernels.py:_bwd): with gp = g_probs + g_x·xv + g_y·yv over a
@@ -20,44 +34,251 @@
 // gp and reduces Σ gp·p, then an elementwise sweep that writes dz in the
 // probabilities' dtype; g_probs may be null (treated as zeros). All in
 // f32; bound: bytes (probabilities, their gradient and dz, once each).
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace mdcv {
 
+constexpr int kMaxWarps = 32;
+
+// values of a row each thread of the forward holds in registers, and its
+// largest block (40 values need more than the 64 registers a thread of a
+// 1024-thread block gets)
+constexpr int kPerThread = 40;
+constexpr int kMaxFwdThreads = 512;
+
+// 16 bytes of logits ↔ f32
+__device__ __forceinline__ void unpack16(const float* src, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(src);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void unpack16(const __nv_bfloat16* src, float* v) {
+  const uint4 q = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[a]));
+    v[2 * a] = f.x, v[2 * a + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void pack16(const float* v, float* dst) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void pack16(const float* v, __nv_bfloat16* dst) {
+  uint32_t w[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * a], v[2 * a + 1]);  // round to nearest even
+    w[a] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The row's vector j (elements j·V ... j·V + V − 1) into v; -inf past the
+// row's end.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* z, int j, int hw, bool vec, float* v) {
+  if (vec && (j + 1) * V <= hw) {
+    unpack16(z + j * V, v);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < V; ++q) v[q] = j * V + q < hw ? to_f32(z[j * V + q]) : -INFINITY;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, int j, int hw, bool vec, const float* v) {
+  if (vec && (j + 1) * V <= hw) {
+    pack16(v, p + j * V);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < V; ++q)
+    if (j * V + q < hw) p[j * V + q] = from_f32<T>(v[q]);
+}
+
+// Σ p·xs[i % w] and Σ p·ys[i / w] over the vector's elements i = j·V + q
+// below hw (tab: xs then ys)
+template <int V>
+__device__ __forceinline__ void add_coords(const float* p, int j, int hw, int w,
+                                           const float* tab, float& ex, float& ey) {
+  int r = (j * V) / w, c = j * V - r * w;
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    if (j * V + q < hw) {
+      ex += p[q] * tab[c];
+      ey += p[q] * tab[w + r];
+    }
+    if (++c == w) c = 0, ++r;
+  }
+}
+
+// Σ p·xs[c] and Σ p·ys[r] over a vector that lies in one map row r,
+// from column c (a multiple of V: its xs are 16-byte aligned in `tab`)
+template <int V>
+__device__ __forceinline__ void add_coords_row(const float* p, int j, int w, const float* tab,
+                                               float& ex, float& ey) {
+  const int r = (j * V) / w, c = j * V - r * w;
+  float x[V];
+#pragma unroll
+  for (int q = 0; q < V; q += 4) unpack16(tab + c + q, x + q);
+  const float y = tab[w + r];
+  float px = 0.f, py = 0.f;
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    px += p[q] * x[q];
+    py += p[q] * y;
+  }
+  ex += px;
+  ey += py;
+}
+
+// Block-wide reductions: warp shuffles, then one shared step through
+// `part` (one slot per warp, used by this reduction alone); every thread
+// gets the result. blockDim.x is a multiple of 32.
+__device__ __forceinline__ float block_max_once(float v, float* part) {
+  for (int o = kWarp / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (threadIdx.x % kWarp == 0) part[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  float r = part[0];
+  for (int a = 1; a < int(blockDim.x) / kWarp; ++a) r = fmaxf(r, part[a]);
+  return r;
+}
+__device__ __forceinline__ float block_sum_once(float v, float* part) {
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (threadIdx.x % kWarp == 0) part[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  float r = 0.f;
+  for (int a = 0; a < int(blockDim.x) / kWarp; ++a) r += part[a];
+  return r;
+}
+__device__ __forceinline__ float2 block_sum2_once(float2 v, float2* part) {
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
+  if (threadIdx.x % kWarp == 0) part[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  float2 r = make_float2(0.f, 0.f);
+  for (int a = 0; a < int(blockDim.x) / kWarp; ++a) r.x += part[a].x, r.y += part[a].y;
+  return r;
+}
+
+// One row a block; each thread holds kPerThread values of it: the vectors
+// j = a·blockDim + threadIdx (a < kPerThread / V), coalesced. Vectors past
+// those (rows longer than blockDim·kPerThread) are read again per sweep.
+// The max ignores NaN (fmaxf): a NaN logit makes its exp, and so the sum,
+// every probability and both points NaN, as the plain version's NaN max
+// does. Values past the row's end are -inf, whose exp adds 0 (or NaN to a
+// sum that is NaN already: a row of -inf and NaN only).
 template <typename T>
-__global__ void softargmax_kernel(const T* __restrict__ logits, const float* __restrict__ xv,
-                                  const float* __restrict__ yv, T* __restrict__ probs,
-                                  float* __restrict__ pts, int hw) {
-  __shared__ float scratch[32];
+__global__ void __launch_bounds__(kMaxFwdThreads)
+    softargmax_kernel(const T* __restrict__ logits, const float* __restrict__ xs,
+                      const float* __restrict__ ys, T* __restrict__ probs,
+                      float* __restrict__ pts, int h, int w) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int NV = kPerThread / V;
+  extern __shared__ __align__(16) float tab[];  // xs[0, w), then ys[0, h)
+  __shared__ float part_max[kMaxWarps], part_sum[kMaxWarps];
+  __shared__ float2 part_xy[kMaxWarps];
+  const int tid = threadIdx.x, nt = blockDim.x, hw = h * w;
+  for (int i = tid; i < w; i += nt) tab[i] = xs[i];
+  for (int i = tid; i < h; i += nt) tab[w + i] = ys[i];
   const size_t row = blockIdx.x;
   const T* z = logits + row * hw;
-  float m = -INFINITY;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) m = max_nan(m, to_f32(z[i]));
-  m = block_max_nan(m, scratch);
-  float s = 0.f;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) s += expf(to_f32(z[i]) - m);
-  s = block_sum(s, scratch);
-  float ex = 0.f, ey = 0.f;
   T* p_out = probs + row * hw;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) {
-    const float p = expf(to_f32(z[i]) - m) / s;
-    p_out[i] = from_f32<T>(p);
-    ex += p * xv[i];
-    ey += p * yv[i];
+  // 16-byte access needs rows that start on 16 bytes
+  const bool vec = hw % V == 0 && reinterpret_cast<uintptr_t>(logits) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(probs) % 16 == 0;
+  const bool in_row = vec && w % V == 0;  // every vector lies in one map row
+  const int nvec = (hw + V - 1) / V;
+
+  float v[NV][V];
+  float m = -INFINITY;
+#pragma unroll
+  for (int a = 0; a < NV; ++a) {
+    const int j = a * nt + tid;
+    if (j < nvec) {
+      load_vec<T, V>(z, j, hw, vec, v[a]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) v[a][q] = -INFINITY;
+    }
+    float mv = v[a][0];
+#pragma unroll
+    for (int q = 1; q < V; ++q) mv = fmaxf(mv, v[a][q]);
+    m = fmaxf(m, mv);
   }
-  ex = block_sum(ex, scratch);
-  ey = block_sum(ey, scratch);
-  if (threadIdx.x == 0) {
-    pts[2 * row] = ex;
-    pts[2 * row + 1] = ey;
+  for (int j = NV * nt + tid; j < nvec; j += nt) {
+    float t[V];
+    load_vec<T, V>(z, j, hw, vec, t);
+#pragma unroll
+    for (int q = 0; q < V; ++q) m = fmaxf(m, t[q]);
+  }
+  m = block_max_once(m, part_max);  // its barrier also publishes the tables
+
+  float s = 0.f;
+#pragma unroll
+  for (int a = 0; a < NV; ++a) {
+    float sv = 0.f;
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      v[a][q] = expf(v[a][q] - m);
+      sv += v[a][q];
+    }
+    s += sv;
+  }
+  for (int j = NV * nt + tid; j < nvec; j += nt) {
+    float t[V];
+    load_vec<T, V>(z, j, hw, vec, t);
+    float sv = 0.f;
+#pragma unroll
+    for (int q = 0; q < V; ++q) sv += expf(t[q] - m);
+    s += sv;
+  }
+  s = block_sum_once(s, part_sum);
+
+  float ex = 0.f, ey = 0.f;
+#pragma unroll
+  for (int a = 0; a < NV; ++a) {
+    const int j = a * nt + tid;
+    if (j < nvec) {
+#pragma unroll
+      for (int q = 0; q < V; ++q) v[a][q] = v[a][q] / s;
+      store_vec<T, V>(p_out, j, hw, vec, v[a]);
+      if (in_row)
+        add_coords_row<V>(v[a], j, w, tab, ex, ey);
+      else
+        add_coords<V>(v[a], j, hw, w, tab, ex, ey);
+    }
+  }
+  for (int j = NV * nt + tid; j < nvec; j += nt) {
+    float t[V];
+    load_vec<T, V>(z, j, hw, vec, t);
+#pragma unroll
+    for (int q = 0; q < V; ++q) t[q] = expf(t[q] - m) / s;
+    store_vec<T, V>(p_out, j, hw, vec, t);
+    if (in_row)
+      add_coords_row<V>(t, j, w, tab, ex, ey);
+    else
+      add_coords<V>(t, j, hw, w, tab, ex, ey);
+  }
+  const float2 e = block_sum2_once(make_float2(ex, ey), part_xy);
+  if (tid == 0) {
+    pts[2 * row] = e.x;
+    pts[2 * row + 1] = e.y;
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* logits, const float* xv, const float* yv, void* probs, float* pts,
-                   int M, int hw, cudaStream_t stream) {
-  softargmax_kernel<T><<<M, 256, 0, stream>>>(static_cast<const T*>(logits), xv, yv,
-                                              static_cast<T*>(probs), pts, hw);
+cudaError_t launch(const void* logits, const float* xs, const float* ys, void* probs, float* pts,
+                   int M, int h, int w, cudaStream_t stream) {
+  const int hw = h * w;
+  const int want = (hw + kPerThread - 1) / kPerThread;
+  const int threads = std::min(kMaxFwdThreads, (want + kWarp - 1) / kWarp * kWarp);
+  softargmax_kernel<T><<<M, threads, (h + w) * sizeof(float), stream>>>(
+      static_cast<const T*>(logits), xs, ys, static_cast<T*>(probs), pts, h, w);
   return cudaGetLastError();
 }
 
@@ -113,14 +334,16 @@ extern "C" int mdcv_softargmax_bwd(const void* probs, const void* g_probs, const
   return int(cudaErrorInvalidValue);
 }
 
-extern "C" int mdcv_softargmax(const void* logits, const void* xv, const void* yv, void* probs,
-                               void* pts, int M, int hw, int dtype, void* stream) {
+extern "C" int mdcv_softargmax(const void* logits, const void* xs, const void* ys, void* probs,
+                               void* pts, int M, int h, int w, int dtype, void* stream) {
   if (M == 0) return 0;
+  // the tables must fit the 48 KB of shared memory a launch gets unasked
+  if (h < 1 || w < 1 || h + w > 10240) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  auto x = static_cast<const float*>(xv);
-  auto y = static_cast<const float*>(yv);
+  auto x = static_cast<const float*>(xs);
+  auto y = static_cast<const float*>(ys);
   auto p = static_cast<float*>(pts);
-  if (dtype == 0) return mdcv::launch<float>(logits, x, y, probs, p, M, hw, s);
-  if (dtype == 1) return mdcv::launch<__nv_bfloat16>(logits, x, y, probs, p, M, hw, s);
+  if (dtype == 0) return mdcv::launch<float>(logits, x, y, probs, p, M, h, w, s);
+  if (dtype == 1) return mdcv::launch<__nv_bfloat16>(logits, x, y, probs, p, M, h, w, s);
   return int(cudaErrorInvalidValue);
 }

@@ -46,11 +46,11 @@ SIGNATURES = {
     # dtype, out, N, B, H, W, C, out_h, out_w, dtype, stream
     "mdcv_roi_crop": (_P, _P, _L, _L, _I, _P, _L, _I, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P),
-    # logits, xv, yv, probs, pts, M, HW, dtype, stream
-    "mdcv_softargmax": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # boxes, scores, keys, out_boxes, out_scores, out_idx, out_keep,
+    # logits, xs, ys, probs, pts, M, h, w, dtype, stream
+    "mdcv_softargmax": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # boxes, scores, out_boxes, out_scores, out_idx, out_keep,
     # B, N, k, conf, overlap, stream
-    "mdcv_nms_topk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    "mdcv_nms_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # hq, w2, w2_scale, w2_b, w1x1, w1x1_scale, w1x1_b, w3, w3_scale,
     # w3_b, sx, out, B, H, W, slope, dtype, stream
     "mdcv_entry_block": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

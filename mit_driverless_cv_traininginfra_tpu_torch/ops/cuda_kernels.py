@@ -39,13 +39,23 @@ def _linspace_f32(stop: float, num: int):
 
 
 @functools.cache
-def _coord_rows(h: int, w: int, device="cpu"):
-    """(1, h·w) f32 coordinate rows (x, y) over ``linspace(0, (n−1)/n, n)``,
-    bit-equal to the JAX package's ``_coord_rows``. Built on the CPU and
+def _coord_tables(h: int, w: int, device="cpu"):
+    """The f32 grids (xs of w entries, ys of h) over
+    ``linspace(0, (n−1)/n, n)`` that K2's forward kernel reads:
+    ``xv[i] = xs[i % w]``, ``yv[i] = ys[i // w]``. Built on the CPU and
     copied once per device, so the device's arithmetic never enters the
     grid and no call pays a host→device copy."""
-    ys = _linspace_f32((h - 1.0) / h, h)
     xs = _linspace_f32((w - 1.0) / w, w)
+    ys = _linspace_f32((h - 1.0) / h, h)
+    return xs.to(device), ys.to(device)
+
+
+@functools.cache
+def _coord_rows(h: int, w: int, device="cpu"):
+    """(1, h·w) f32 coordinate rows (x, y), bit-equal to the JAX package's
+    ``_coord_rows``: the tables of :func:`_coord_tables` laid along the
+    flattened map (the plain version and K2's backward read them)."""
+    xs, ys = _coord_tables(h, w)
     yv = ys.repeat_interleave(w)  # y varies over rows of the map
     xv = xs.repeat(h)
     return xv[None, :].to(device), yv[None, :].to(device)
@@ -69,14 +79,17 @@ def _cuda_softargmax(logits):
     """K2 forward launch: the outputs of :func:`_torch_softargmax`."""
     m, h, w = logits.shape
     code = _lib.dtype_code(logits.dtype)
+    if h + w > 10240:
+        raise ValueError(f"a {h}×{w} map's coordinate tables exceed the "
+                         f"kernel's shared memory")
     z = logits.contiguous()
-    xv, yv = _coord_rows(h, w, logits.device)
+    xs, ys = _coord_tables(h, w, logits.device)
     probs = torch.empty_like(z)
     pts = torch.empty((m, 2), dtype=torch.float32, device=logits.device)
     with torch.cuda.device(logits.device):
         rc = _lib.lib().mdcv_softargmax(
-            z.data_ptr(), xv.data_ptr(), yv.data_ptr(), probs.data_ptr(),
-            pts.data_ptr(), m, h * w, code, _lib.stream_ptr(logits.device))
+            z.data_ptr(), xs.data_ptr(), ys.data_ptr(), probs.data_ptr(),
+            pts.data_ptr(), m, h, w, code, _lib.stream_ptr(logits.device))
     _lib.check(rc, "softargmax")
     fused_softargmax.launches += 1
     return pts, probs
@@ -199,6 +212,11 @@ def _torch_nms_topk(boxes, scores, conf_thresh: float, k: int,
     return cand, top_val, top_idx, torch.stack(kept_cols, dim=1)
 
 
+# CTAs per image, as csrc/nms_topk.cu is built (kCtas): one thread-block
+# cluster splits the N scores in chunks
+NMS_CTAS = 8
+
+
 def _cuda_nms_topk(boxes, scores, conf_thresh: float, k: int,
                    overlap: float):
     """K3 launch: same outputs as :func:`_torch_nms_topk` (idx int32)."""
@@ -211,16 +229,15 @@ def _cuda_nms_topk(boxes, scores, conf_thresh: float, k: int,
     dev = boxes.device
     b = boxes.float().contiguous()
     s = scores.float().contiguous()
-    keys = torch.empty((B, N), dtype=torch.int32, device=dev)
     out_b = torch.empty((B, k, 4), dtype=torch.float32, device=dev)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     out_keep = torch.empty((B, k), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         rc = _lib.lib().mdcv_nms_topk(
-            b.data_ptr(), s.data_ptr(), keys.data_ptr(), out_b.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), out_keep.data_ptr(), B, N, k,
-            conf_thresh, overlap, _lib.stream_ptr(dev))
+            b.data_ptr(), s.data_ptr(), out_b.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), out_keep.data_ptr(), B, N, k, conf_thresh,
+            overlap, _lib.stream_ptr(dev))
     _lib.check(rc, "nms_topk")
     nms_topk.launches += 1
     return out_b, out_s, out_i, out_keep

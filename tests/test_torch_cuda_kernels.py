@@ -31,6 +31,8 @@ from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_crop import roi_crop
 from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
 from mit_driverless_cv_traininginfra_tpu_torch.ops import resstage
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
+    NMS_CTAS,
+    _cuda_nms_topk,
     _torch_nms_topk,
     _torch_softargmax,
     _torch_softargmax_bwd,
@@ -172,17 +174,45 @@ def test_roi_crop_takes_strided_bf16_boxes_and_one_kernel_a_call(cuda):
         roi_crop(frames, boxes.double(), fidx)
 
 
-@pytest.mark.parametrize("shape", [(5, 13, 17), (3, 80, 80)])
-def test_softargmax_matches_plain(cuda, shape):
-    z = torch.from_numpy(np.random.default_rng(1).normal(0, 4, shape).astype(
-        np.float32)).to(cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(448, 80, 80), (784, 80, 80), (5, 13, 17), (1, 1, 7),
+                                   (4, 160, 160)])
+def test_softargmax_matches_plain(cuda, shape, dtype):
+    """K2's forward within the smoke's tolerances of ``_torch_softargmax``
+    (sums in another order): points 1e-6 in f32, 2e-3 in bf16; probs atol
+    1e-6, and in bf16 rtol 2^-8 against the plain version's probabilities
+    before their bf16 rounding (half a bf16 ulp is at most 2^-8 of the
+    value). Against the plain bf16 probabilities, a value whose f32 sum
+    lands on a rounding boundary may round the other way: such values must
+    be neighbouring bf16 numbers. Rows holding a NaN or a +inf are NaN in
+    both; an all-equal row is uniform. 160×160 rows are longer than a
+    block's registers hold: the kernel reads the rest again. One launch a
+    call."""
+    z = torch.from_numpy(np.random.default_rng(1).normal(0, 4, shape).astype(np.float32))
+    if shape[0] >= 4:
+        z[1, 0, -1] = np.nan
+        z[2, -1, 0] = np.inf
+        z[3] = 2.5
+    z = z.to(cuda, dtype)
     pts, probs = fused_softargmax(z)
     ref_pts, ref_probs = _torch_softargmax(z)
-    torch.testing.assert_close(pts, ref_pts, atol=1e-6, rtol=0)
-    torch.testing.assert_close(probs, ref_probs, atol=1e-6, rtol=0)
+    assert pts.dtype == torch.float32 and probs.dtype == dtype and probs.shape == z.shape
+    torch.testing.assert_close(pts, ref_pts, atol=_smoke().PTS_ATOL[dtype], rtol=0,
+                               equal_nan=True)
+    unrounded = _torch_softargmax(z.float())[1]  # the plain probabilities in f32
+    torch.testing.assert_close(probs.float(), unrounded, atol=1e-6,
+                               rtol=0 if dtype == torch.float32 else 2 ** -8, equal_nan=True)
+    if dtype == torch.bfloat16:
+        step = (probs.view(torch.int16).int() - ref_probs.view(torch.int16).int()).abs()
+        assert int(step[~ref_probs.isnan()].max()) <= 1
+    if shape[0] >= 4:
+        assert probs[1:3].isnan().all() and pts[1:3].isnan().all()
+        assert bool((probs[3].float() == probs[3, 0, 0].float()).all())
+    kernels, per_call, _ = _smoke().device_kernels(lambda: fused_softargmax(z), 5)
+    assert per_call == 1 and kernels and all("softargmax" in k for k in kernels), kernels
 
 
-@pytest.mark.parametrize("k,n", [(1, 7), (16, 16), (64, 1000)])
+@pytest.mark.parametrize("k,n", [(1, 7), (16, 16), (64, 64), (64, 1000)])
 def test_nms_topk_matches_plain_slot_for_slot(cuda, k, n):
     rng = np.random.default_rng(2)
     c = rng.uniform(0, 100, (3, n, 2))
@@ -192,10 +222,54 @@ def test_nms_topk_matches_plain_slot_for_slot(cuda, k, n):
     scores = torch.from_numpy(rng.uniform(0, 1, (3, n)).astype(np.float32))
     scores[1, : n // 2] = 0.9  # exact ties
     scores = scores.to(cuda)
-    got = nms_topk(boxes, scores, 0.5, k, 0.3)
+    got = _cuda_nms_topk(boxes, scores, 0.5, k, 0.3)
     ref = _torch_nms_topk(boxes, scores, 0.5, k, 0.3)
-    for g, r in zip(got, (ref[0], ref[1], ref[3])):
-        assert torch.equal(g, r)
+    assert torch.equal(got[2].long(), ref[2])
+    for g, r in zip(got, ref):
+        assert _same_bits_nan(g, r) if g.dtype == torch.float32 else torch.equal(g.long(), r.long())
+
+
+def _assert_nms_bit_equal(got, ref):
+    """Slots, scores, indices, boxes (NaN where the plain one is) and keep
+    flags of ``_cuda_nms_topk`` bit-equal to ``_torch_nms_topk``."""
+    b, s, i, keep = got
+    rb, rs, ri, rkeep = ref
+    assert torch.equal(i.long(), ri) and torch.equal(keep, rkeep)
+    assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+    assert _same_bits_nan(b, rb)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 128])
+def test_nms_topk_bit_equal_on_served_frames(cuda, B):
+    """At 416² (N = 10647, k = 16) on ``chip_smoke.nms_inputs`` frames —
+    fewer than k above conf, exact ties, none above conf, non-finite
+    corners, clustered boxes — and one launch a call."""
+    N, conf, ovl = 3 * (13 * 13 + 26 * 26 + 52 * 52), 0.8, 0.25
+    boxes, scores = _smoke().nms_inputs(np.random.default_rng(20 + B), max(B, 5), N, conf)
+    pick = np.roll(np.arange(max(B, 5)), -1)[:B]  # the special frames first
+    b, s = boxes[pick].to(cuda), scores[pick].to(cuda)
+    _assert_nms_bit_equal(_cuda_nms_topk(b, s, conf, 16, ovl),
+                          _torch_nms_topk(b, s, conf, 16, ovl))
+    kernels, per_call, _ = _smoke().device_kernels(lambda: nms_topk(b, s, conf, 16, ovl), 5)
+    assert per_call == 1 and kernels and all("nms_topk" in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("k", [1, 16, 64])
+def test_nms_topk_ties_on_the_chunk_edges(cuda, k):
+    """Equal scores on both sides of every CTA chunk's edge (and at the
+    row's ends): the merge across the cluster of ``NMS_CTAS`` CTAs keeps
+    lax.top_k's order, ties to the lower index."""
+    N = 3 * (13 * 13 + 26 * 26 + 52 * 52)
+    rng = np.random.default_rng(30 + k)
+    boxes, scores = _smoke().nms_inputs(rng, 5, N, 0.8)
+    chunk = -(-N // NMS_CTAS)
+    for c in range(NMS_CTAS + 1):
+        edge = min(N, c * chunk)
+        scores[0, max(0, edge - 3):edge + 3] = 0.99
+        scores[2, max(0, edge - 1):edge + 1] = 0.81
+    b, s = boxes.to(cuda), scores.to(cuda)
+    _assert_nms_bit_equal(_cuda_nms_topk(b, s, 0.8, k, 0.25),
+                          _torch_nms_topk(b, s, 0.8, k, 0.25))
 
 
 def test_nms_topk_rejects_bad_k(cuda):

@@ -1,7 +1,12 @@
 """Kernel K3's plain version (threshold + top-k + greedy NMS) against the
 JAX package's XLA twin, slot for slot, and its Pallas kernel (interpret
-mode) on the valid slots; plus the IoU it is built on."""
+mode) on the valid slots; plus the IoU it is built on, and the packed-key
+merge that K3's CUDA kernel splits over a cluster of CTAs."""
 
+import re
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +23,9 @@ from mit_driverless_cv_traininginfra_tpu.ops.pallas_kernels import (
 from mit_driverless_cv_traininginfra_tpu_torch.ops.boxes import (
     iou_no_plus_one_pairwise,
 )
+from mit_driverless_cv_traininginfra_tpu_torch.ops import cuda_kernels
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
+    NMS_CTAS,
     _topk_stable,
     _torch_nms_topk,
     nms_topk,
@@ -100,3 +107,105 @@ def test_wrapper_takes_plain_version_on_cpu():
                                        OVERLAP)
     assert torch.equal(b, rb) and torch.equal(s, rs) and torch.equal(keep, rkeep)
     assert nms_topk.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K3's CUDA kernel takes the top k of each CTA's chunk of packed keys and
+# merges the chunks' top k: a plain model of that merge
+# ---------------------------------------------------------------------------
+
+
+def _order_key(v):
+    """``csrc/nms_topk.cu:order_key``: f32 → uint32 in the same order, −0
+    and +0 equal, −inf → 0x007fffff."""
+    u = np.where(v == 0, np.float32(0), v).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _packed_keys(masked):
+    """``order_key(masked) << 32 | (0xffffffff − index)``: unique, larger
+    for a higher score and, among ties, for the lower index."""
+    idx = np.arange(masked.size, dtype=np.uint64)
+    return (_order_key(masked).astype(np.uint64) << np.uint64(32)) | (
+        np.uint64(0xFFFFFFFF) - idx)
+
+
+def _select_top(cand, k):
+    """The kernel's merge: a key's slot is the number of keys above it plus
+    the equal ones before it (only the pad key 0 repeats)."""
+    above = (cand[None, :] > cand[:, None]).sum(1)
+    equal_before = np.tril(cand[None, :] == cand[:, None], -1).sum(1)
+    rank = above + equal_before
+    out = np.empty(k, np.uint64)
+    out[rank[rank < k]] = cand[rank < k]
+    return out
+
+
+def _cluster_top_k(masked, k, ctas):
+    """Chunks of ceil(N / ctas) keys, each one's top k padded with key 0,
+    merged into the top k: the slots' indices."""
+    keys = _packed_keys(masked)
+    n = keys.size
+    chunk = -(-n // ctas)
+    parts = [_select_top(np.concatenate([keys[min(n, c * chunk):min(n, (c + 1) * chunk)],
+                                         np.zeros(k, np.uint64)]), k)
+             for c in range(ctas)]
+    top = _select_top(np.concatenate(parts), k)
+    assert (top >> np.uint64(32)).min() >= 0x007FFFFF  # no pad reaches a slot
+    return (np.uint64(0xFFFFFFFF) - (top & np.uint64(0xFFFFFFFF))).astype(np.int64)
+
+
+def _merge_case(case, k, ctas):
+    """(scores, conf) of one case; scores from a few levels, so ties abound."""
+    sizes = {"boundary_ties": 1000, "none_above": 500, "nan": 777, "ragged": 16 * 61 + 5,
+             "short_chunks": max(k, ctas + 1), "signed_zeros": 300}
+    rng = np.random.default_rng([list(sizes).index(case), k, ctas])
+    n = sizes[case]
+    scores = rng.choice(np.float32([0.1, 0.5, 0.85, 0.9, 0.95]), n)
+    conf = 0.8
+    if case == "boundary_ties":  # equal scores on both sides of every chunk edge
+        chunk = -(-n // ctas)
+        for c in range(1, ctas):
+            scores[max(0, c * chunk - 2):c * chunk + 2] = 0.97
+    elif case == "none_above":
+        conf = 0.96
+    elif case == "nan":
+        scores[rng.choice(n, n // 5, replace=False)] = np.nan
+    elif case == "signed_zeros":
+        scores = rng.choice(np.float32([-0.0, 0.0, -0.5]), n)
+        conf = -1.0
+    return scores.astype(np.float32), conf
+
+
+@pytest.mark.parametrize("ctas", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 16, 64])
+@pytest.mark.parametrize("case", ["boundary_ties", "none_above", "nan", "ragged",
+                                  "short_chunks", "signed_zeros"])
+def test_cluster_merge_of_packed_keys_equals_top_k(case, k, ctas):
+    """The top k of the chunks' top k of unique packed keys is the top k of
+    all: slot for slot the port's ``_topk_stable`` and ``lax.top_k`` on the
+    masked scores (NaN → −inf by the threshold; pads of key 0 below −inf)."""
+    scores, conf = _merge_case(case, k, ctas)
+    masked = np.where(scores > conf, scores, -np.inf).astype(np.float32)
+    got = _cluster_top_k(masked, k, ctas)
+    vals, idx = _topk_stable(torch.from_numpy(masked), k)
+    np.testing.assert_array_equal(got, idx.numpy())
+    np.testing.assert_array_equal(masked[got], vals.numpy())
+    if case == "none_above":
+        assert np.isneginf(masked[got]).all() and got.tolist() == list(range(k))
+    if case != "signed_zeros":  # lax.top_k orders +0 above −0; the port ties them
+        jvals, jidx = jax.lax.top_k(jnp.asarray(masked), k)
+        np.testing.assert_array_equal(got, np.asarray(jidx))
+        np.testing.assert_array_equal(masked[got], np.asarray(jvals))
+
+
+def test_nms_cluster_splits_the_served_candidates():
+    """``NMS_CTAS`` is the cluster size K3's source is built with, a portable
+    one (at most 8 CTAs), and at 416² (N = 10647) each CTA's chunk fits one
+    tile of its registers (1024 threads × 8 keys), so the kernel reads
+    every score once."""
+    src = (Path(cuda_kernels.__file__).parents[1] / "csrc" / "nms_topk.cu").read_text()
+    built = re.findall(r"constexpr int kCtas = (\d+);", src)
+    assert built == [str(NMS_CTAS)] and 1 <= NMS_CTAS <= 8
+    n = 3 * (13 * 13 + 26 * 26 + 52 * 52)
+    assert -(-n // NMS_CTAS) <= 1024 * 8

@@ -24,6 +24,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import (
 )
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
     _coord_rows,
+    _coord_tables,
     _torch_softargmax,
     _torch_softargmax_bwd,
     fused_softargmax,
@@ -39,6 +40,22 @@ def test_coord_rows_bit_equal_to_jax(n):
     jx, jy = jax_coord_rows(n, n + 3, jnp.float32)
     np.testing.assert_array_equal(xv.numpy(), np.asarray(jx))
     np.testing.assert_array_equal(yv.numpy(), np.asarray(jy))
+
+
+@pytest.mark.parametrize("h,w", [(80, 80), (13, 17), (1, 7)])
+def test_coord_tables_index_to_the_coord_rows(h, w):
+    # K2's forward reads the w-entry xs and h-entry ys tables and indexes
+    # them as xs[i % w], ys[i // w]: the same bits as both packages' rows
+    xs, ys = _coord_tables(h, w)
+    assert xs.shape == (w,) and ys.shape == (h,) and xs.dtype == torch.float32
+    i = torch.arange(h * w)
+    xv, yv = xs[i % w], ys[i // w]
+    rx, ry = _coord_rows(h, w)
+    jx, jy = jax_coord_rows(h, w, jnp.float32)
+    for got, port, ref in ((xv, rx, jx), (yv, ry, jy)):
+        bits = got.numpy().view(np.int32)
+        np.testing.assert_array_equal(bits, port[0].numpy().view(np.int32))
+        np.testing.assert_array_equal(bits, np.asarray(ref)[0].view(np.int32))
 
 
 def _logits(seed, m=12, h=80, w=80):
