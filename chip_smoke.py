@@ -18,7 +18,8 @@ hand-written CUDA kernels:
    NMS) against their plain PyTorch versions on the card, at the shapes
    the main path gives them, in f32 and bf16, with CUDA-event timings,
    one device kernel a call and its device time (``torch.profiler``); K2
-   at 448 and 784 rows (capacity 64 and 112), K3 at B=8 and B=1; K1
+   at 448 and 784 rows (capacity 64 and 112), K3 at B=8 and B=1, and at
+   conf −1 on scores of ±0 (+0 ranks above −0, as lax.top_k ranks it); K1
    also: the plain crop's coordinates on the card bit-equal to the CPU's,
    its bf16 crops bit-equal to the plain crop on the CPU, and the host
    microseconds of a call;
@@ -37,6 +38,9 @@ hand-written CUDA kernels:
 6. K5: the int8 forward of the served frames up to the 26² stage (S=26,
    C=512, n=8, B=8), then K5 against its plain version, every int8 and
    bf16 equal, borders included; again at S=13 with ±127 at the borders;
+   its device time, 2n = 16 kernels a call (SASS: integer tensor-core
+   instructions, IMMA or IGMMA, > 0),
+   and ``torch._int_mm`` on the same products as a yardstick;
 7. probes: the ported Pallas probes of the repository's ``tools/``
    (``probes.PROBES``, 46, and P16 at 128× its rows) at their own sizes,
    each through the kernels ``tail_conv``, ``window_resample``,
@@ -44,10 +48,11 @@ hand-written CUDA kernels:
    equal; block sums within their f32 tolerance); then ``tail_conv`` on
    the int8 RektNet's own ``res4.conv1`` — its input the activations that
    ``res[0..2]`` make of the K1 crops of the served frames, 64 crops —
-   value-equal to ``relu(_qconv(h, res4.conv1))``; each of the four
+   value-equal to ``relu(_qconv(h, res4.conv1))``, one kernel a call
+   (SASS: IMMA or IGMMA > 0) with its device time; each of the four
    counted over this path, and timed on one of its shapes;
 8. K2 backward against its plain version at (224, 80, 80), f32 and bf16,
-   with and without a probabilities' gradient;
+   with and without a probabilities' gradient, and its device time;
 9. training: one f32 ``rektnet_train_step`` on the card against the CPU
    from the same seeded parameters and batch (loss, updated parameters,
    running stats); 20 bf16 and 20 f32 steps on the card (finite losses,
@@ -56,8 +61,9 @@ hand-written CUDA kernels:
 
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
-its own path's run (counters set to 0 just before it; the K1-K4 rows
-also carry ``device_ms`` and ``kernels_per_call``): K1-K4 over the
+its own path's run (counters set to 0 just before it; the K1-K5, K2
+backward and ``tail_conv`` rows also carry ``device_ms`` and
+``kernels_per_call``): K1-K4 over the
 int8 server's requests, K5 over its stage path, the four probe kernels
 over the probe path, K2's backward over the training steps. ``bound_ms``
 is the larger of the row's bytes over 3.35 TB/s and its operations over
@@ -228,6 +234,18 @@ def host_us(fn, calls: int = 200) -> float:
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return t / calls * 1e6
+
+
+def int_mm_ms(shapes, repeat: int = 1, iters: int = 5) -> float:
+    """CUDA-event ms of ``torch._int_mm`` on each (M, K)·(K, N) of
+    ``shapes``, each ``repeat`` times, over seeded random int8 matrices (B
+    column-major, its fast layout): a yardstick of a kernel's products
+    alone, not a library call of the kernel's function."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mats = [(torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8),
+             torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8).t())
+            for m, k, n in shapes]
+    return cuda_ms(lambda: [torch._int_mm(a, b) for _ in range(repeat) for a, b in mats], iters)
 
 
 def max_abs(a, b) -> float:
@@ -481,6 +499,19 @@ def phase_k3(dev, rows: dict) -> None:
                                     kernels_per_call=per_call, library_ms=None, **bd)
         elif dt == torch.float32:
             rows["nms_topk"]["device_ms_b1"] = dev_ms
+    # conf < 0 on scores of ±0 and −0.5: +0 ranks above −0 (lax.top_k's
+    # order), slots bit-equal to the plain version's
+    rng = np.random.default_rng(31)
+    zs = torch.from_numpy(rng.choice(np.float32([-0.0, 0.0, -0.5]), (B_SERVE, N)))
+    b, s = boxes.to(dev), zs.to(dev)
+    for k in (1, MAX_DET, 64):
+        got = _cuda_nms_topk(b, s, -1.0, k, ovl)
+        ref = _torch_nms_topk(b, s, -1.0, k, ovl)
+        same = (torch.equal(got[2].long(), ref[2]) and torch.equal(got[3], ref[3])
+                and torch.equal(got[1].view(torch.int32), ref[1].view(torch.int32)))
+        first_plus = bool((ref[1][:, 0].view(torch.int32) == 0).all())
+        log(f"K3 conf -1 on ±0 scores, k={k}: slots bit-equal {same}, +0 first {first_plus}")
+        check(same and first_plus, f"K3 on signed zeros, k={k}: slots differ from the plain version")
     rows["nms_topk"]["max_abs_err"] = max(errs)
 
 
@@ -895,22 +926,34 @@ def phase_k5(dev, rows: dict, bundles, yolo, frames_np) -> None:
     k_ms, p_ms = paired_ms(lambda: resstage.fused_res_stage(xf, pk, S, nb, SLOPE),
                            lambda: resstage._res_stage_plain(xf, pk, S, nb, SLOPE),
                            iters=10)
-    for kern in ("conv1x1_kernel", "conv3x3_kernel"):
+    kernels, per_call, dev_ms = device_kernels(
+        lambda: resstage.fused_res_stage(xf, pk, S, nb, SLOPE), 10)
+    sass = {k: sass_count(k) for k in ("conv1x1_kernel", "conv3x3_kernel")}
+    for kern in sass:
         for line in ptxas_lines(kern):
             log(f"K5 ptxas {kern}: {line}")
     ops = 2 * B * S * S * nb * (C * (C // 2) + 9 * (C // 2) * C)
-    b = bound(nbytes(xf, pk["w1_k"], pk["w3_k"], yq, ybf), ops, "int8")
+    b = bound(nbytes(xf, pk["w1_tc"], pk["w3_tc"], yq, ybf), ops, "int8")
+    gemm_ms = int_mm_ms([(B * S * S, C, C // 2), (B * S * S, 9 * C // 2, C)], nb)
     log(f"K5 res_stage int8: stage input {tuple(x.shape)} (blocks {start}-"
         f"{start + 3 * nb - 1}), n={nb}: yq differing {dq}/{yq.numel()}, ybf "
         f"differing {db}/{ybf.numel()}, borders zero {zero}; S=13 with ±127 "
-        f"borders: {dq_e}, {db_e}, {zero_e}; kernel {k_ms!r} ms plain {p_ms!r} "
-        f"ms; {ops / 1e9:.1f} G int8 ops = {ops / k_ms / 1e9:.1f} TOP/s; bound "
-        f"{b['bound_ms']!r} ms ({b['bound_by']}); launches {launches}")
+        f"borders: {dq_e}, {db_e}, {zero_e}; kernel {k_ms!r} ms (device {dev_ms!r} "
+        f"ms, {per_call!r} launches a call) plain {p_ms!r} ms; {ops / 1e9:.1f} G "
+        f"int8 ops = {ops / dev_ms / 1e9:.1f} TOP/s on the device; bound "
+        f"{b['bound_ms']!r} ms ({b['bound_by']}); torch._int_mm on the same "
+        f"products {gemm_ms!r} ms; SASS {sass}; launches {launches}")
     check(dq == db == dq_e == db_e == 0 and zero and zero_e,
           "K5 differs from its plain version")
     check(launches == 1, f"K5's path launched it {launches} times")
-    rows["res_stage"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0,
-                             launches=launches, library_ms=None, **b)
+    check(all(c is None or c["IMMA"] + c["IGMMA"] > 0 for c in sass.values()),
+          f"K5's SASS holds no integer tensor-core instruction: {sass}")
+    check(per_call == 2 * nb and kernels
+          and all("conv1x1_kernel" in k or "conv3x3_kernel" in k for k in kernels),
+          f"K5 is not 2n tensor-core kernels a call: {per_call}, {sorted(set(kernels))}")
+    rows["res_stage"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, device_ms=dev_ms,
+                             kernels_per_call=per_call, launches=launches,
+                             library_ms=None, int_mm_ms=gemm_ms, **b)
 
 
 # ---------------------------------------------------------------------------
@@ -990,14 +1033,26 @@ def phase_probes(dev, rows: dict, yolo, rekt, frames_np, thresh, smi) -> None:
     with torch.inference_mode():
         k_ms, p_ms = paired_ms(lambda: WRAPPERS["tail_conv"](h, conv1),
                                lambda: PLAIN.tail_conv(h, conv1), iters=20)
+        kernels, per_call, dev_ms = device_kernels(lambda: WRAPPERS["tail_conv"](h, conv1), 10)
     nb, ops, kind = tail_conv1.tail_work({"h": h, "q": conv1}, got)
     b = bound(nb, ops, kind)
+    sass = sass_count("tail_conv_kernel")
+    for line in ptxas_lines("tail_conv_kernel"):
+        log(f"tail_conv ptxas: {line}")
+    gemm_ms = int_mm_ms([(h.shape[0] * 80 * 80, 9 * h.shape[-1], conv1.out_channels)])
     log(f"tail_conv on Int8RektNet res4.conv1, {tuple(h.shape)} from K1 crops of "
         f"the served frames: differing {n_diff}/{got.numel()} (values), kernel "
-        f"{k_ms!r} ms ({ops / k_ms / 1e9:.1f} TOP/s) plain {p_ms!r} ms, bound "
-        f"{b['bound_ms']!r} ms ({b['bound_by']}) on {smi}")
+        f"{k_ms!r} ms (device {dev_ms!r} ms, {per_call!r} launches a call, "
+        f"{ops / dev_ms / 1e9:.1f} TOP/s) plain {p_ms!r} ms, bound "
+        f"{b['bound_ms']!r} ms ({b['bound_by']}), torch._int_mm on the same "
+        f"product {gemm_ms!r} ms, SASS {sass} on {smi}")
     check(n_diff == 0, "tail_conv differs from relu(_qconv(h, res4.conv1))")
-    rows["tail_conv"].update(ms=k_ms, plain_ms=p_ms, library_ms=None,
+    check(sass is None or sass["IMMA"] + sass["IGMMA"] > 0,
+          f"tail_conv's SASS holds no integer tensor-core instruction: {sass}")
+    check(per_call == 1 and kernels and all("tail_conv" in k for k in kernels),
+          f"tail_conv is not one device kernel a call: {per_call}, {kernels}")
+    rows["tail_conv"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, device_ms=dev_ms,
+                             kernels_per_call=per_call, int_mm_ms=gemm_ms,
                              max_abs_err=max(err["tail_conv"], max_abs(got, want)),
                              launches=launches["tail_conv"], **b)
     for kernel, (probe, inp, out) in timed.items():
@@ -1054,9 +1109,12 @@ def phase_k2_bwd(dev, rows: dict) -> None:
         if dt == torch.bfloat16:  # the training path's case: bf16, no g_probs
             k_ms, p_ms = paired_ms(lambda: softargmax_bwd(probs, g_pts),
                                    lambda: _torch_softargmax_bwd(probs, g_pts))
-            log(f"K2-bwd bf16: kernel {k_ms!r} ms plain {p_ms!r} ms")
+            kernels, per_call, dev_ms = device_kernels(lambda: softargmax_bwd(probs, g_pts), 20)
+            log(f"K2-bwd bf16: kernel {k_ms!r} ms (device {dev_ms!r} ms, {per_call!r} "
+                f"launches a call, {sorted(set(kernels))}) plain {p_ms!r} ms")
             b = bound(nbytes(probs, g_pts, probs), 8 * probs.numel(), "f32")
-            rows["softargmax_bwd"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **b)
+            rows["softargmax_bwd"].update(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                                          device_ms=dev_ms, kernels_per_call=per_call, **b)
     rows["softargmax_bwd"]["max_abs_err"] = max(errs)
 
 

@@ -46,7 +46,7 @@
 // 1×1, as q8), q8(out2) 20 KB (reused to stage the output tile, stored
 // with 16-byte writes), q8(t) 10 KB, scales 1.3 KB: 206 KB of 227.
 //
-// What bounds it now (tools/k4_phases.py, H100 80GB HBM3 at 700 W): a
+// What bounds it now (clock64 phases of a patched copy, H100 80GB HBM3 at 700 W): a
 // tile's cycles go to conv2p 45%, the 1×1 17%, the 3×3 26%, the window
 // wait 8% and the output copy 3%. The same kernel without its epilogues
 // (about 47k values a tile dequantized, leaky'd and requantized on the CUDA
@@ -55,7 +55,7 @@
 // m64n64 in place of m64n32 made faster, and a barrier after each phase.
 #include <atomic>
 
-#include "common.cuh"
+#include "int8_mma.cuh"
 
 namespace mdcv {
 
@@ -93,83 +93,6 @@ static_assert(kHqBytes % 16 == 0 && kOffHq % 16 == 0 && kOffOut2 % 16 == 0 &&
                   kOffQ2 % 16 == 0 && kOffT % 16 == 0 && kOffPar % 16 == 0,
               "16-byte alignment of the shared buffers");
 static_assert(kTile * kTile * kC2 <= kQ2Bytes, "the output tile is staged in q8(out2)");
-
-__device__ __forceinline__ int8_t q8(float v, float sx_inv) {
-  const float r = rintf(__fmul_rn(v, sx_inv));
-  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, -127.f), 127.f)));
-}
-
-// int32 → acc·scale + b in f32 → bf16 → leaky (slope already in bf16)
-__device__ __forceinline__ __nv_bfloat16 deq_leaky(int acc, float scale, float bias,
-                                                   float slope) {
-  const float y32 = __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);
-  const __nv_bfloat16 y = __float2bfloat16_rn(y32);
-  return y32 >= 0.f ? y : __float2bfloat16_rn(__fmul_rn(__bfloat162float(y), slope));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the A fragment of a 16×32 int8 tile: lane l points at row (l & 7) +
-// ((l >> 3) & 1)·8, bytes 16·(l >> 4) of it
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&a)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// not volatile: a pure register operation, free to move between loads
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], int b0, int b1) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// wgmma m64n32k32 s8·s8→s32: D (this warp's 16 rows × 32) += A (this warp's
-// 16×32 fragment, registers) · B (32×32, K-major core matrices in shared
-// memory, described by desc); accumulate = 0 overwrites D
-__device__ __forceinline__ void wgmma_n32(int (&d)[4][4], const uint32_t (&a)[4], uint64_t desc,
-                                          int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p;\n}\n"
-      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]), "+r"(d[1][0]),
-        "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]), "+r"(d[2][0]), "+r"(d[2][1]),
-        "+r"(d[2][2]), "+r"(d[2][3]), "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]),
-        "+r"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps a register's value where the asynchronous wgmma reads or writes it:
-// the compiler may neither reuse nor read it across this point
-__device__ __forceinline__ void keep(int& r) { asm volatile("" : "+r"(r)::"memory"); }
-__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-
-constexpr int kLBO = 128, kSBO = 256;  // K-adjacent, N-adjacent core matrices
-// the shared-memory descriptor of a K-major B tile without swizzle: 8×16-byte
-// core matrices, [n-group][k-chunk][8 rows][16 bytes]
-__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(kLBO >> 4) << 16) |
-         (uint64_t(kSBO >> 4) << 32);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n"); }
 
 struct TileAt {
   int img, r0, c0;

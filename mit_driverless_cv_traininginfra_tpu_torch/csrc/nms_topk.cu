@@ -3,10 +3,10 @@
 // Replaces the TPU kernel mit_driverless_cv_traininginfra_tpu/ops/
 // pallas_kernels.py:_pallas_nms_topk (body _nms_topk_kernel), and holds
 // the slot layout of its XLA twin _xla_nms_topk (the path's default there):
-// slot j is the j-th candidate in lax.top_k order — score descending, ties
-// to the lower index, and below-conf slots (score -inf) filled with the
-// lowest indices not yet chosen — suppressed slots keep their place with
-// keep = false.
+// slot j is the j-th candidate in lax.top_k order — score descending (+0
+// above −0), ties to the lower index, and below-conf slots (score -inf)
+// filled with the lowest indices not yet chosen — suppressed slots keep
+// their place with keep = false.
 //
 // On the card: a thread-block cluster of kCtas (8) CTAs per image, each
 // CTA over its own chunk of ceil(N / 8) scores. A thread reads its 8
@@ -51,8 +51,8 @@ constexpr int kKeysPerThread = 8;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / kWarp;
 
+// f32 → uint32 in lax.top_k's order: monotone, +0 above −0
 __device__ __forceinline__ uint32_t order_key(float v) {
-  if (v == 0.f) v = 0.f;  // -0 and +0 tie, as they compare equal
   const uint32_t u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);  // -inf → 0x007fffff
 }

@@ -182,10 +182,15 @@ fused_softargmax.launches = 0
 
 
 def _topk_stable(x, k: int):
-    """``jax.lax.top_k`` along the last axis: descending, ties to the lower
-    index (``torch.topk`` orders ties differently)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    """``jax.lax.top_k`` of f32 ``x`` along the last axis: descending in
+    XLA's total order of floats, so +0 above −0 (the two compare equal);
+    ties to the lower index (``torch.topk`` orders ties differently). The
+    sort key is the f32 bits as int32 with a negative value's magnitude
+    bits flipped, which orders ints as that total order orders floats."""
+    bits = x.float().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(x, -1, idx), idx
 
 
 def _torch_nms_topk(boxes, scores, conf_thresh: float, k: int,

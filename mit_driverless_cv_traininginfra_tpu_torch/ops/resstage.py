@@ -46,7 +46,11 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.quantize import (
     _q8,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.ops import _lib
-from mit_driverless_cv_traininginfra_tpu_torch.ops.entry import _deq_leaky
+from mit_driverless_cv_traininginfra_tpu_torch.ops.entry import (
+    _deq_leaky,
+    _pack_frag,
+    _pack_wgmma,
+)
 
 
 def res_stage_spans(spec: NetworkSpec):
@@ -134,18 +138,31 @@ def quantize_res_stage(qparams, start: int, n_blocks: int,
     }
 
 
+def _k3_padded(c_half: int) -> int:
+    """K of the 3×3, 9·C/2, rounded up to K5's 64-byte chunks."""
+    return -(-9 * c_half // 64) * 64
+
+
 def pack_res_stage(rs) -> Dict[str, torch.Tensor]:
     """:func:`quantize_res_stage`'s bundle → the bundle the stage runs on,
-    made once: each block's weights as a row-major (N, K) int8 matrix with
-    K tap-major (``w1_k`` (n, C/2, C), ``w3_k`` (n, C, 9·C/2)) — K5 reads
-    16-byte runs of K, and the transpose of each is the column-major (K,
-    N) matrix ``torch._int_mm`` takes; flat scales and biases (n, C/2) /
-    (n, C); ``sx1``, ``sx3`` (n,) and ``sx_out`` (1,)."""
+    made once: for the plain version each block's weights as a row-major
+    (N, K) int8 matrix with K tap-major (``w1_k`` (n, C/2, C), ``w3_k`` (n,
+    C, 9·C/2)), whose transpose is the column-major (K, N) matrix
+    ``torch._int_mm`` takes; for K5's tensor cores the same (K, N) matrices
+    as the 1×1's ``mma.sync`` B fragments (``ops.entry._pack_frag``):
+    ``w1_tc`` (n, C/32, C/64, 2, 32, 16), and the 3×3's ``wgmma`` B tiles
+    (``ops.entry._pack_wgmma``): ``w3_tc`` (n, Kp/32, C/32, 4, 2, 8, 16),
+    its K zero-padded to Kp, a multiple of 64; flat scales and biases (n,
+    C/2) / (n, C); ``sx1``, ``sx3`` (n,) and ``sx_out`` (1,)."""
     n, c, c_half = rs["w1"].shape
+    w3 = rs["w3"].reshape(n, 9 * c_half, c)
+    w3 = F.pad(w3, (0, 0, 0, _k3_padded(c_half) - 9 * c_half))
     return {
         "w1_k": rs["w1"].transpose(1, 2).contiguous(),
         "w3_k": rs["w3"].permute(0, 3, 1, 2).reshape(n, c, 9 * c_half)
                         .contiguous(),
+        "w1_tc": torch.stack([_pack_frag(w) for w in rs["w1"]]),
+        "w3_tc": torch.stack([_pack_wgmma(w) for w in w3]),
         "s1": rs["s1"].reshape(n, c_half).contiguous(),
         "b1": rs["b1"].reshape(n, c_half).contiguous(),
         "s3": rs["s3"].reshape(n, c).contiguous(),
@@ -208,20 +225,24 @@ def _res_stage_plain(x_flat, pk, S: int, n_blocks: int, leaky_slope: float):
 # K5
 # ---------------------------------------------------------------------------
 
+MAX_C = 1024  # the widest stage K5 is built for (Darknet-53's last)
+
 
 def _cuda_res_stage(x_flat, pk, S: int, n_blocks: int, leaky_slope: float):
     """K5 launch: the same (yq, ybf) as :func:`_res_stage_plain`, bit for
-    bit. One launch runs the whole stage (2n convolution kernels, the host
-    looping over the blocks inside the C entry point)."""
+    bit. One launch runs the whole stage (2n convolution kernels and
+    nothing else, the host looping over the blocks inside the C entry
+    point)."""
     P = (S + 2) * (S + 2)
     if x_flat.dim() != 2 or x_flat.shape[0] % P:
         raise ValueError(f"x must be (B·(S+2)², C) for S={S}, got "
                          f"{tuple(x_flat.shape)}")
     B, C = x_flat.shape[0] // P, x_flat.shape[1]
-    if C % 64:
-        raise ValueError(f"C must be a multiple of 64, got {C}")
-    shapes = {"w1_k": ((n_blocks, C // 2, C), torch.int8),
-              "w3_k": ((n_blocks, C, 9 * C // 2), torch.int8),
+    if C % 64 or C > MAX_C:
+        raise ValueError(f"C must be a multiple of 64 up to {MAX_C}, got {C}")
+    kp = _k3_padded(C // 2)
+    shapes = {"w1_tc": ((n_blocks, C // 32, C // 64, 2, 32, 16), torch.int8),
+              "w3_tc": ((n_blocks, kp // 32, C // 32, 4, 2, 8, 16), torch.int8),
               "s1": ((n_blocks, C // 2), torch.float32),
               "b1": ((n_blocks, C // 2), torch.float32),
               "s3": ((n_blocks, C), torch.float32),
@@ -238,13 +259,14 @@ def _cuda_res_stage(x_flat, pk, S: int, n_blocks: int, leaky_slope: float):
                              f"{v.dtype} on {v.device}")
     code = _lib.dtype_code(x_flat.dtype)
     x = x_flat.contiguous()
+    # K5 writes every element of the three, borders included
     ybf = torch.empty_like(x)
     yq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     tq = torch.empty((B * P, C // 2), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         rc = _lib.lib().mdcv_res_stage(
-            x.data_ptr(), pk["w1_k"].data_ptr(), pk["s1"].data_ptr(),
-            pk["b1"].data_ptr(), pk["w3_k"].data_ptr(), pk["s3"].data_ptr(),
+            x.data_ptr(), pk["w1_tc"].data_ptr(), pk["s1"].data_ptr(),
+            pk["b1"].data_ptr(), pk["w3_tc"].data_ptr(), pk["s3"].data_ptr(),
             pk["b3"].data_ptr(), pk["sx1"].data_ptr(), pk["sx3"].data_ptr(),
             pk["sx_out"].data_ptr(), ybf.data_ptr(), yq.data_ptr(),
             tq.data_ptr(), B, S, C, n_blocks, _slope_in(leaky_slope, ACT_DTYPE),

@@ -1,32 +1,33 @@
 #!/usr/bin/env python3
-"""Device time of K2's forward (soft-argmax) and K3 (threshold + top-k +
-NMS) at the serving shapes, on one card, in two checkouts.
+"""Device time of K2's forward (soft-argmax), K3 (threshold + top-k +
+NMS), K5 (the int8 residual stage) and ``tail_conv`` (RektNet's int8
+``res4.conv1``) at their main paths' shapes, on one card, in two
+checkouts.
 
-    python3 mit_driverless_cv_traininginfra_tpu_torch/tools/bench_k2k3.py --roots OLD,NEW [--one-cta]
+    python3 mit_driverless_cv_traininginfra_tpu_torch/tools/bench_k2k3.py --roots OLD,NEW
 
 For the order OLD, NEW, NEW, OLD, a fresh process in each checkout
 imports that checkout's ``chip_smoke.py`` and port, builds its kernels,
-and times the public wrappers (``fused_softargmax``, ``nms_topk``) on
-the same seeded inputs: K2 at 448 and 784 rows of 80×80 (serving
-capacity 64 and 112) in bf16 and f32, K3 at B=8 and B=1 of N=10647 f32
-candidates (``chip_smoke.nms_inputs``). Each prints one JSON line:
-device ms a call and launches a call (``chip_smoke.device_kernels``,
+and times the public wrappers on the same seeded inputs: ``fused_softargmax``
+at 448 and 784 rows of 80×80 (serving capacity 64 and 112) in bf16 and
+f32; ``nms_topk`` at B=8 and B=1 of N=10647 f32 candidates
+(``chip_smoke.nms_inputs``); ``fused_res_stage`` on the 26² stage (C=512,
+n=8) at B=8 and B=128, its bundle made by the checkout's own
+``pack_res_stage`` from one seeded quantized bundle; ``tail_conv`` on the
+probe's draws at 64 and 512 crops. Each prints one JSON line: device ms a
+call and launches a call (``chip_smoke.device_kernels``,
 ``torch.profiler``) and call ms (CUDA events, the wrapper's Python
-included), and for bf16 how many probabilities lie outside atol 1e-6 +
+included), for bf16 K2 how many probabilities lie outside atol 1e-6 +
 rtol 2^-8 of the plain version's bf16 and unrounded f32 probabilities
-(the smoke's draws and the GPU test's). ``--one-cta`` adds, as
-OLD, NEW, ONE, ONE, NEW, OLD, a copy of NEW under the git-ignored
-``build/one_cta/`` whose K3 is built with one CTA per image (``kCtas``
-1 in ``csrc/nms_topk.cu``) instead of a cluster of 8: the cluster
-against a single larger CTA with the same register top k. Needs a CUDA
-card; compare runs of one call only.
+(the smoke's draws and the GPU test's), and for K5 and ``tail_conv`` the
+CUDA-event ms of ``torch._int_mm`` on the same (M, K)·(K, N) products (a
+yardstick of the GEMMs alone, not of the function). Needs a CUDA card;
+compare runs of one call only.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -75,38 +76,68 @@ for B, pick in ((8, slice(0, 8)), (1, slice(2, 3))):
     kernels, per_call, dev_ms = cs.device_kernels(fn, 20)
     out[f"K3 B={B}"] = {"device_ms": dev_ms, "launches_a_call": per_call,
                         "call_ms": cs.cuda_ms(fn)}
+
+
+def int_mm_ms(shapes, repeat=1, iters=10):
+    # torch._int_mm, each product `repeat` times, over random int8 (M, K)
+    # row-major and (K, N) column-major matrices
+    g = torch.Generator(device=dev).manual_seed(0)
+    mats = [(torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8),
+             torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8).t())
+            for m, k, n in shapes]
+    return cs.cuda_ms(lambda: [torch._int_mm(a, b) for _ in range(repeat) for a, b in mats],
+                      iters)
+
+
+from mit_driverless_cv_traininginfra_tpu_torch.ops import resstage
+C, S, NB = 512, 26, 8
+rng = np.random.default_rng(5)
+rs = {"w1": rng.integers(-127, 128, (NB, C, C // 2), dtype=np.int8),
+      "w3": rng.integers(-127, 128, (NB, 9, C // 2, C), dtype=np.int8),
+      "s1": rng.uniform(1e-5, 3e-5, (NB, 1, C // 2)).astype(np.float32),
+      "b1": rng.normal(0, 0.1, (NB, 1, C // 2)).astype(np.float32),
+      "s3": rng.uniform(1e-6, 3e-6, (NB, 1, C)).astype(np.float32),
+      "b3": rng.normal(0, 0.1, (NB, 1, C)).astype(np.float32),
+      "sx1": np.full((1, NB), 40.0, np.float32), "sx3": np.full((1, NB), 30.0, np.float32),
+      "sx_out": np.float32(35.0)}
+pk = {k: v.to(dev) for k, v in resstage.pack_res_stage(
+    {k: torch.from_numpy(np.asarray(v)) for k, v in rs.items()}).items()}
+x_all = torch.from_numpy(rng.normal(0, 1, (128, S, S, C)).astype(np.float32)).to(dev)
+for B in (8, 128):
+    xf = resstage.res_stage_pre(x_all[:B])
+    fn = lambda: resstage.fused_res_stage(xf, pk, S, NB, 0.1)
+    got = fn()
+    ref = resstage._res_stage_plain(xf, pk, S, NB, 0.1)
+    kernels, per_call, dev_ms = cs.device_kernels(fn, 3 if B == 128 else 10)
+    M = B * S * S
+    out[f"K5 B={B}"] = {
+        "device_ms": dev_ms, "launches_a_call": per_call, "call_ms": cs.cuda_ms(fn, 5, 2),
+        "equal": bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])),
+        "int_mm_ms": int_mm_ms([(M, C, C // 2), (M, 9 * C // 2, C)], NB, 5)}
+    del ref, got
+
+from mit_driverless_cv_traininginfra_tpu_torch.ops.tail_conv import tail_conv, tail_conv_plain
+from mit_driverless_cv_traininginfra_tpu_torch.probes import tail_conv1
+for crops in (64, 512):
+    inp = tail_conv1.probe_inputs(crops, dev)
+    q = tail_conv1.qconv_from_probe(inp["wim"], inp["scale"], inp["bias"], inp["sx_inv"]).to(dev)
+    fn = lambda: tail_conv(inp["h"], q)
+    equal = bool(torch.equal(fn(), tail_conv_plain(inp["h"], q)))
+    kernels, per_call, dev_ms = cs.device_kernels(fn, 10)
+    out[f"tail_conv crops={crops}"] = {
+        "device_ms": dev_ms, "launches_a_call": per_call, "call_ms": cs.cuda_ms(fn, 20),
+        "equal": equal, "int_mm_ms": int_mm_ms([(crops * 6400, 576, 128)])}
+    del inp
 print(json.dumps(out), flush=True)
 """
-
-
-def one_cta_copy(root: Path) -> Path:
-    """A copy of ``root``'s ``chip_smoke.py`` and port whose K3 cluster has
-    one CTA: the kernel then takes a chunk of N in one 1024-thread CTA."""
-    port = "mit_driverless_cv_traininginfra_tpu_torch"
-    dst = root / port / "build" / "one_cta"
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(root / port, dst / port, ignore=shutil.ignore_patterns("build"))
-    shutil.copy(root / "chip_smoke.py", dst)
-    src = dst / port / "csrc" / "nms_topk.cu"
-    text = src.read_text()
-    if text.count("constexpr int kCtas = 8;") != 1:
-        raise SystemExit(f"{src}: no `constexpr int kCtas = 8;` to change")
-    src.write_text(text.replace("constexpr int kCtas = 8;", "constexpr int kCtas = 1;"))
-    return dst
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", required=True, help="OLD,NEW checkout directories")
-    ap.add_argument("--one-cta", action="store_true",
-                    help="also NEW with one CTA per image for K3")
     args = ap.parse_args()
     old, new = (Path(r).resolve() for r in args.roots.split(","))
-    order = (old, new, new, old)
-    if args.one_cta:
-        one = one_cta_copy(new)
-        order = (old, new, one, one, new, old)
-    for root in order:
+    for root in (old, new, new, old):
         proc = subprocess.run([sys.executable, "-c", CHILD, str(root)], cwd=root,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:

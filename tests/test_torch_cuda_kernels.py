@@ -272,6 +272,25 @@ def test_nms_topk_ties_on_the_chunk_edges(cuda, k):
                           _torch_nms_topk(b, s, 0.8, k, 0.25))
 
 
+@pytest.mark.parametrize("k", [1, 16, 64])
+def test_nms_topk_signed_zeros_below_zero_conf(cuda, k):
+    """``conf_thresh = -1`` on scores of ±0, −0.5 and ties at the chunk
+    edges: K3 ranks +0 above −0 as ``lax.top_k`` does, and its slots are
+    bit-equal to the plain version's."""
+    N = 3 * (13 * 13 + 26 * 26 + 52 * 52)
+    rng = np.random.default_rng(40 + k)
+    boxes, _ = _smoke().nms_inputs(rng, 5, N, 0.8)
+    boxes = boxes[:3]
+    scores = torch.from_numpy(rng.choice(np.float32([-0.0, 0.0, -0.5]), (3, N)))
+    scores[2] = -0.0
+    scores[2, rng.choice(N, 5, replace=False)] = 0.0
+    b, s = boxes.to(cuda), scores.to(cuda)
+    got = _cuda_nms_topk(b, s, -1.0, k, 0.25)
+    _assert_nms_bit_equal(got, _torch_nms_topk(b, s, -1.0, k, 0.25))
+    plus = torch.nonzero(scores[2].view(torch.int32) == 0).flatten().tolist()
+    assert got[2][2, :min(k, 5)].tolist() == plus[:k]  # the five +0 first
+
+
 def test_nms_topk_rejects_bad_k(cuda):
     boxes = torch.zeros((1, 10, 4), device=cuda)
     scores = torch.zeros((1, 10), device=cuda)
@@ -390,19 +409,22 @@ def test_entry_block_runs_on_integer_tensor_cores(cuda):
 
 
 def _stage_bundle(cuda, rng, C: int, n: int):
-    """A random packed K5 bundle: int8 weights, small scales, biases."""
-    pk = {"w1_k": rng.integers(-127, 128, (n, C // 2, C), dtype=np.int8),
-          "w3_k": rng.integers(-127, 128, (n, C, 9 * C // 2), dtype=np.int8),
-          "s1": rng.uniform(1e-5, 3e-5, (n, C // 2)).astype(np.float32),
-          "b1": rng.normal(0, 0.1, (n, C // 2)).astype(np.float32),
-          "s3": rng.uniform(1e-6, 3e-6, (n, C)).astype(np.float32),
-          "b3": rng.normal(0, 0.1, (n, C)).astype(np.float32),
-          "sx1": np.full(n, 40.0, np.float32), "sx3": np.full(n, 30.0, np.float32),
-          "sx_out": np.full(1, 35.0, np.float32)}
-    return {k: torch.from_numpy(v).to(cuda) for k, v in pk.items()}
+    """A random K5 bundle packed by ``pack_res_stage``: int8 weights, small
+    scales, biases."""
+    rs = {"w1": rng.integers(-127, 128, (n, C, C // 2), dtype=np.int8),
+          "w3": rng.integers(-127, 128, (n, 9, C // 2, C), dtype=np.int8),
+          "s1": rng.uniform(1e-5, 3e-5, (n, 1, C // 2)).astype(np.float32),
+          "b1": rng.normal(0, 0.1, (n, 1, C // 2)).astype(np.float32),
+          "s3": rng.uniform(1e-6, 3e-6, (n, 1, C)).astype(np.float32),
+          "b3": rng.normal(0, 0.1, (n, 1, C)).astype(np.float32),
+          "sx1": np.full((1, n), 40.0, np.float32), "sx3": np.full((1, n), 30.0, np.float32),
+          "sx_out": np.float32(35.0)}
+    pk = resstage.pack_res_stage({k: torch.from_numpy(np.asarray(v)) for k, v in rs.items()})
+    return {k: v.to(cuda) for k, v in pk.items()}
 
 
-@pytest.mark.parametrize("B,S,C,n", [(2, 13, 128, 2), (3, 26, 512, 2), (1, 5, 64, 3)])
+@pytest.mark.parametrize("B,S,C,n", [(2, 13, 128, 2), (3, 26, 512, 2), (1, 5, 64, 3),
+                                     (1, 26, 512, 8), (8, 26, 512, 8), (2, 13, 1024, 2)])
 def test_res_stage_bit_equal_to_plain(cuda, B, S, C, n):
     """K5 against ``_res_stage_plain`` on the card: every int8 of ``yq`` and
     every bf16 of ``ybf`` equal, borders zero, with ±5 (→ ±127 after
@@ -421,6 +443,47 @@ def test_res_stage_bit_equal_to_plain(cuda, B, S, C, n):
     assert torch.equal(ybf.view(torch.int16), ref_b.view(torch.int16))
     full = resstage.res_stage_post(yq, B, S)
     assert int(full[:, 0].abs().max()) == 0 and int(full[:, :, -1].abs().max()) == 0
+
+
+def test_res_stage_s13_with_127_on_every_border(cuda):
+    """S=13 (169 positions a map, not a multiple of a block's rows), C=512,
+    n=8, with values quantizing to ±127 on all four border rows and
+    columns: ``yq`` and ``ybf`` bit-equal to the plain version, borders 0,
+    the input untouched; a call is 2n kernel launches and nothing else,
+    each of them one of K5's two tensor-core convolutions."""
+    rng = np.random.default_rng(10)
+    pk = _stage_bundle(cuda, rng, 512, 8)
+    x = torch.from_numpy(rng.normal(0, 1, (3, 13, 13, 512)).astype(np.float32)).to(cuda)
+    sign = torch.from_numpy(rng.choice([-5.0, 5.0], (4, 3, 13, 512)).astype(np.float32)).to(cuda)
+    x[:, 0], x[:, -1], x[:, :, 0], x[:, :, -1] = sign
+    xf = resstage.res_stage_pre(x)
+    kept = xf.clone()
+    yq, ybf = resstage.fused_res_stage(xf, pk, 13, 8, 0.1)
+    ref_q, ref_b = resstage._res_stage_plain(xf, pk, 13, 8, 0.1)
+    assert torch.equal(yq, ref_q) and torch.equal(xf, kept)
+    assert torch.equal(ybf.view(torch.int16), ref_b.view(torch.int16))
+    assert int((ref_q == 127).sum()) > 0 and int((ref_q == -127).sum()) > 0
+    for t in (yq, ybf.view(torch.int16)):
+        full = resstage.res_stage_post(t, 3, 13)
+        assert all(int(e.abs().max()) == 0 for e in (full[:, 0], full[:, -1], full[:, :, 0],
+                                                     full[:, :, -1]))
+    kernels, per_call, _ = _smoke().device_kernels(
+        lambda: resstage.fused_res_stage(xf, pk, 13, 8, 0.1), 3)
+    assert per_call == 16, per_call
+    assert kernels and all("conv1x1_kernel" in k or "conv3x3_kernel" in k for k in kernels), kernels
+
+
+def test_res_stage_and_tail_conv_run_on_integer_tensor_cores(cuda):
+    """The built K5 and tail_conv kernels' SASS holds integer tensor-core
+    MMAs (IMMA for mma.sync)."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import _lib
+
+    _lib.lib()
+    for name in ("conv1x1_kernel", "conv3x3_kernel", "tail_conv_kernel"):
+        counts = _smoke().sass_count(name)
+        if counts is None:
+            pytest.skip("the toolkit has no cuobjdump")
+        assert counts["IMMA"] + counts["IGMMA"] > 0, (name, counts)
 
 
 def test_res_stage_rejects_bad_bundles(cuda):
@@ -564,6 +627,28 @@ def test_tail_conv_on_int8_rektnet_res4(cuda):
     assert torch.equal(got, want)
     with pytest.raises(ValueError):
         tail_conv(h, rekt.res[3].shortcut_conv)  # a 1×1 conv
+
+
+@pytest.mark.parametrize("crops", [1, 63, 64, 512])
+def test_tail_conv_edge_crop_counts(cuda, crops):
+    """``tail_conv`` on the probe's draws at 1, 63, 64 (the served
+    capacity) and 512 (the probe's size) crops — a grid smaller than the
+    card, ragged, and many tiles a block — value-equal to its plain
+    version, one kernel launch a call."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.tail_conv import tail_conv, tail_conv_plain
+    from mit_driverless_cv_traininginfra_tpu_torch.probes import tail_conv1
+
+    inp = tail_conv1.probe_inputs(crops, cuda)
+    q = tail_conv1.qconv_from_probe(inp["wim"], inp["scale"], inp["bias"], inp["sx_inv"]).to(cuda)
+    got = tail_conv(inp["h"], q)
+    want = tail_conv_plain(inp["h"], q)
+    torch.cuda.synchronize()
+    assert got.shape == (crops, 80, 80, 128) and torch.equal(got, want)
+    del want
+    # 10 calls a profiled session: with 2, CUPTI recorded no device activity
+    # at all in some sessions (the host's launch count was right)
+    kernels, per_call, _ = _smoke().device_kernels(lambda: tail_conv(inp["h"], q), 10)
+    assert per_call == 1 and kernels and all("tail_conv" in k for k in kernels), kernels
 
 
 @pytest.mark.parametrize("K", [16, 32, 48, 64, 108])

@@ -58,6 +58,21 @@ def test_topk_stable_breaks_ties_like_lax_top_k():
     assert idx.tolist() == [2, 5, 6, 0, 1]  # torch.topk gives [2,5,6,0,3]
 
 
+@pytest.mark.parametrize("k", [1, 5, 12])
+def test_topk_stable_ranks_plus_zero_above_minus_zero_like_lax_top_k(k):
+    """±0 (which compare equal), ties and −inf, in rows of both orders:
+    ``_topk_stable`` gives ``lax.top_k``'s indices and values, bit for bit
+    (+0 above −0; among equal values the lower index first)."""
+    x = np.asarray([[-0.0, 0.0, -0.0, 0.0, 0.5, -np.inf, 0.5, -0.0, -np.inf, 0.0, -0.5, 0.5],
+                    [0.0, -0.0, -np.inf, -0.0, 0.0, 0.25, -0.25, 0.0, 0.25, -np.inf, -0.0, 0.0]],
+                   np.float32)
+    vals, idx = _topk_stable(torch.from_numpy(x), k)
+    jvals, jidx = jax.lax.top_k(jnp.asarray(x), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy().view(np.int32), np.asarray(jvals).view(np.int32))
+    assert idx[0, :min(k, 6)].tolist() == [4, 6, 11, 1, 3, 9][:k]
+
+
 def test_iou_matches_jax_bitwise_with_zero_union():
     rng = np.random.default_rng(1)
     b = rng.uniform(0, 50, (3, 10, 4)).astype(np.float32)
@@ -116,9 +131,9 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 
 def _order_key(v):
-    """``csrc/nms_topk.cu:order_key``: f32 → uint32 in the same order, −0
-    and +0 equal, −inf → 0x007fffff."""
-    u = np.where(v == 0, np.float32(0), v).astype(np.float32).view(np.uint32)
+    """``csrc/nms_topk.cu:order_key``: f32 → uint32 in the same order, +0
+    above −0, −inf → 0x007fffff."""
+    u = np.asarray(v, np.float32).view(np.uint32)
     return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
 
 
@@ -193,10 +208,9 @@ def test_cluster_merge_of_packed_keys_equals_top_k(case, k, ctas):
     np.testing.assert_array_equal(masked[got], vals.numpy())
     if case == "none_above":
         assert np.isneginf(masked[got]).all() and got.tolist() == list(range(k))
-    if case != "signed_zeros":  # lax.top_k orders +0 above −0; the port ties them
-        jvals, jidx = jax.lax.top_k(jnp.asarray(masked), k)
-        np.testing.assert_array_equal(got, np.asarray(jidx))
-        np.testing.assert_array_equal(masked[got], np.asarray(jvals))
+    jvals, jidx = jax.lax.top_k(jnp.asarray(masked), k)
+    np.testing.assert_array_equal(got, np.asarray(jidx))
+    np.testing.assert_array_equal(masked[got].view(np.int32), np.asarray(jvals).view(np.int32))
 
 
 def test_nms_cluster_splits_the_served_candidates():

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_entry import _lane_rows, _ldmatrix, _wgmma_b
+
 from mit_driverless_cv_traininginfra_tpu.config.flagship import (
     flagship_spec as jflagship_spec,
 )
@@ -201,3 +203,175 @@ def test_truncated_forward_ends_the_walk_where_asked():
         last = model.truncated_forward(x, len(spec.blocks) - 1)
     assert torch.equal(last, heads[-1])
 
+
+
+# ---------------------------------------------------------------------------
+# K5's card kernels in numpy: the shared-memory stages with their swizzle
+# (64-byte rows, 16-byte chunk ^= (row >> 1) & 3), the lanes' ldmatrix
+# addresses, each warp's rows and columns, and ``pack_res_stage``'s weights
+# (the 1×1's mma.sync fragments, the 3×3's wgmma tiles), contracted in
+# int32 chunk by chunk as the kernels' products do (``csrc/res_stage.cu``).
+# ---------------------------------------------------------------------------
+
+BM1, NB1, BM3, BN3 = 48, 256, 192, 128
+
+
+def _a_off(r, c):
+    """``csrc/res_stage.cu:a_off``: chunk c of row r in a 64-byte-row stage."""
+    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4)
+
+
+def _frag_b(frag):
+    """(32 lanes, 16 bytes) of one fragment pair → its (32 k, 16 n) B."""
+    p = frag.reshape(8, 4, 2, 2, 4)  # g, t, a, r, b
+    return p.transpose(3, 1, 4, 2, 0).reshape(32, 16).astype(np.int64)
+
+
+def _emulate_1x1(xq, w1_tc, m0):
+    """One block of the 1×1: rows m0 … m0 + 47 of the quantized carrier
+    ``xq`` (M, C) staged once as [C/64][48][64] swizzled, then N in passes
+    of 256 columns, warp w taking 32 of them, the weights' chunks as the
+    kernel's B stages [k-step][group][pair][lane][16]. Returns (48, C/2)."""
+    M, C = xq.shape
+    cm = C // 2
+    arow, ahalf = _lane_rows()
+    sa = np.zeros((C // 64, BM1 * 64), np.int8)
+    rows = np.arange(BM1)
+    for kc, piece in np.ndindex(C // 64, 4):
+        src = np.zeros((BM1, 16), np.int8)
+        ok = m0 + rows < M
+        src[ok] = xq[m0 + rows[ok], 64 * kc + 16 * piece:64 * kc + 16 * piece + 16]
+        sa[kc][_a_off(rows, piece)[:, None] + np.arange(16)] = src
+    out = np.zeros((BM1, cm), np.int64)
+    for nb0 in range(0, cm, NB1):
+        groups = min(NB1, cm - nb0) // 32
+        for kc in range(C // 64):
+            stage = np.zeros((2, NB1 // 32, 2, 32, 16), np.int8)
+            stage[:, :groups] = w1_tc[2 * kc:2 * kc + 2, nb0 // 32:nb0 // 32 + groups]
+            for warp, ks in np.ndindex(groups, 2):
+                for mi in range(BM1 // 16):
+                    a = _ldmatrix(sa[kc], _a_off(16 * mi + arow, 2 * ks + ahalf))
+                    for q in range(2):
+                        n = nb0 + 32 * warp + 16 * q
+                        out[16 * mi:16 * mi + 16, n:n + 16] += a @ _frag_b(stage[ks, warp, q])
+    return out
+
+
+def _emulate_3x3(tq_pad, w3_tc, S, m0, n0):
+    """One block of the 3×3: rows m0 … m0 + 191 × columns n0 … n0 + 127.
+    A chunk kc's 16-byte piece j of row r is t at the row's padded position
+    + the tap's offset, k = 64kc + 16j (zeros past 9·C/2 or past M); the B
+    stage holds k-steps 2kc, 2kc + 1 as the block's 4 wgmma tiles each,
+    read through the descriptor (LBO 128, SBO 256); warp w of the 3
+    warpgroups takes rows 64·(w // 4) + 16·(w % 4) … + 15 × all 128 columns
+    (``wgmma.m64n128k32``, A from its ldmatrix fragment). Returns (192, 128)."""
+    W, cm = S + 2, tq_pad.shape[-1]
+    flat = tq_pad.reshape(-1, cm)
+    M, C, K = (flat.shape[0] // (W * W)) * S * S, w3_tc.shape[1] * 32, 9 * cm
+    arow, ahalf = _lane_rows()
+    rows = np.arange(BM3)
+    m = m0 + rows
+    base = ((m // (S * S)) * W + (m % (S * S)) // S) * W + (m % (S * S)) % S
+    ok = m < M
+    groups = min(BN3, C - n0) // 32
+    out = np.zeros((BM3, BN3), np.int64)
+    for kc in range(-(-K // 64)):
+        sa = np.zeros(BM3 * 64, np.int8)
+        for j in range(4):
+            k = 64 * kc + 16 * j
+            tap, c = divmod(k, cm)
+            if k < K:
+                src = flat[base[ok] + (tap // 3) * W + tap % 3, c:c + 16]
+                sa[_a_off(rows[ok], j)[:, None] + np.arange(16)] = src
+        stage = np.zeros((2, 4096), np.int8)
+        for ks in range(2):
+            tiles = w3_tc[2 * kc + ks, n0 // 32:n0 // 32 + groups].reshape(-1)
+            stage[ks, :tiles.size] = tiles
+        for warp, ks in np.ndindex(12, 2):
+            r0 = 64 * (warp // 4) + 16 * (warp % 4)
+            a = _ldmatrix(sa, _a_off(r0 + arow, 2 * ks + ahalf))
+            out[r0:r0 + 16] += a @ _wgmma_b(stage[ks], BN3)
+    return out
+
+
+@pytest.mark.parametrize("c,s,b", [(64, 5, 2), (128, 5, 2), (64, 26, 1)])
+def test_fragment_order_convs_equal_int_conv(c, s, b):
+    """Both convolutions of a K5 block, contracted in the kernels' stage,
+    swizzle, ldmatrix, fragment and descriptor order over
+    ``pack_res_stage``'s weights, equal ``_int_conv``'s int32 sums at every
+    interior position: S=5, B=2 (50 positions: a 1×1 block and the 3×3's
+    block mostly past M), S=26 (676 positions: 4 ragged 3×3 blocks), C=64
+    (a 3×3 K of 288 padded to 320, half the block's columns past N) and
+    C=128; ±127 on the border rows and columns."""
+    rng = np.random.default_rng(12)
+    n = 1
+    rs = {"w1": torch.from_numpy(rng.integers(-127, 128, (n, c, c // 2), dtype=np.int8)),
+          "w3": torch.from_numpy(rng.integers(-127, 128, (n, 9, c // 2, c), dtype=np.int8)),
+          **{k: torch.ones((n, 1, w)) for k, w in (("s1", c // 2), ("b1", c // 2),
+                                                   ("s3", c), ("b3", c))},
+          "sx1": torch.ones((1, n)), "sx3": torch.ones((1, n)), "sx_out": torch.tensor(1.0)}
+    pk = resstage.pack_res_stage(rs)
+    kp = -(-9 * (c // 2) // 64) * 64
+    assert pk["w1_tc"].shape == (n, c // 32, c // 64, 2, 32, 16)
+    assert pk["w3_tc"].shape == (n, kp // 32, c // 32, 4, 2, 8, 16)
+    xq = rng.integers(-127, 128, (b, s, s, c), dtype=np.int8)
+    xq[:, 0], xq[:, :, -1] = 127, -127
+    want1 = quantize._int_conv(torch.from_numpy(xq), pk["w1_k"][0].t(), c // 2, 1, 1).numpy()
+    flat = xq.reshape(-1, c)
+    got1 = np.concatenate([_emulate_1x1(flat, pk["w1_tc"][0].numpy(), m0)
+                           for m0 in range(0, flat.shape[0], BM1)])[:flat.shape[0]]
+    np.testing.assert_array_equal(got1, want1.reshape(-1, c // 2))
+
+    tq = rng.integers(-127, 128, (b, s, s, c // 2), dtype=np.int8)
+    tq[:, -1], tq[:, :, 0] = -127, 127
+    want3 = quantize._int_conv(torch.from_numpy(tq), pk["w3_k"][0].t(), c, 3, 3,
+                               padding=1).numpy().reshape(-1, c)
+    tq_pad = np.pad(tq, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    got3 = np.concatenate([
+        np.concatenate([_emulate_3x3(tq_pad, pk["w3_tc"][0].numpy(), s, m0, n0)
+                        for n0 in range(0, c, BN3)], 1)
+        for m0 in range(0, b * s * s, BM3)])[:b * s * s, :c]
+    assert np.abs(want3).max() > 2 ** 15
+    np.testing.assert_array_equal(got3, want3)
+
+
+def test_pack_res_stage_fragments_hold_the_plain_matrices():
+    """``w1_tc`` / ``w3_tc`` read back by a plain index map are ``w1_k`` /
+    ``w3_k`` transposed (the 3×3's K zero past 9·C/2)."""
+    from test_torch_entry import _read_frag, _read_wgmma
+
+    rng = np.random.default_rng(13)
+    n, c = 2, 64
+    rs = {"w1": torch.from_numpy(rng.integers(-127, 128, (n, c, c // 2), dtype=np.int8)),
+          "w3": torch.from_numpy(rng.integers(-127, 128, (n, 9, c // 2, c), dtype=np.int8)),
+          **{k: torch.ones((n, 1, w)) for k, w in (("s1", c // 2), ("b1", c // 2),
+                                                   ("s3", c), ("b3", c))},
+          "sx1": torch.ones((1, n)), "sx3": torch.ones((1, n)), "sx_out": torch.tensor(1.0)}
+    pk = resstage.pack_res_stage(rs)
+    for blk in range(n):
+        np.testing.assert_array_equal(_read_frag(pk["w1_tc"][blk]), pk["w1_k"][blk].t().numpy())
+        w3 = _read_wgmma(pk["w3_tc"][blk])
+        np.testing.assert_array_equal(w3[:9 * c // 2], pk["w3_k"][blk].t().numpy())
+        assert w3.shape == (320, c) and not w3[9 * c // 2:].any()
+
+
+def test_1x1_epilogue_bytes_land_in_column_order():
+    """The 1×1's epilogue word of n-tile j at lane 4g + t holds row g's
+    columns 2t, 2t+1, then row g+8's; after the quad transpose, byte
+    permutes 0x5410 / 0x7632 of words (0, 1) and (2, 3) give row g's and
+    row g+8's eight columns of n-tile t in order (8-byte stores)."""
+    from test_torch_tail_conv import _quad_transpose
+
+    g, t = np.arange(32) >> 2, np.arange(32) & 3
+    # a byte names its (row, column): row·32 + column, column = 8j + c
+    bytes_ = lambda j, row: np.stack([row * 32 + 8 * j + 2 * t, row * 32 + 8 * j + 2 * t + 1], 1)  # noqa: E731
+    v = np.stack([np.concatenate([bytes_(j, g), bytes_(j, g + 8)], 1) for j in range(4)], 1)
+    got = np.stack([_quad_transpose(v[:, :, e]) for e in range(4)], 2)  # (lane, word, byte)
+    perm = {0x5410: (0, 1, 4, 5), 0x7632: (2, 3, 6, 7)}
+    for lane in range(32):
+        for sel, row in ((0x5410, g[lane]), (0x7632, g[lane] + 8)):
+            out = []
+            for w0, w1 in ((0, 1), (2, 3)):
+                pair = np.concatenate([got[lane, w0], got[lane, w1]])
+                out += [pair[i] for i in perm[sel]]
+            assert out == [row * 32 + 8 * t[lane] + e for e in range(8)]

@@ -23,12 +23,18 @@ import pytest
 import torch
 import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
+from test_torch_entry import _lane_rows, _ldmatrix, _wgmma_b
 from test_torch_probes import jax_tool
 
 from mit_driverless_cv_traininginfra_tpu.models import quantize as jquantize
 from mit_driverless_cv_traininginfra_tpu_torch import convert
 from mit_driverless_cv_traininginfra_tpu_torch.models import quantize, rektnet
-from mit_driverless_cv_traininginfra_tpu_torch.ops.tail_conv import tail_conv, tail_conv_plain
+from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
+from mit_driverless_cv_traininginfra_tpu_torch.ops.tail_conv import (
+    pack_tail_conv,
+    tail_conv,
+    tail_conv_plain,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.probes import tail_conv1
 
 C, SX = 2, 2.0
@@ -157,3 +163,134 @@ def test_int8_rektnet_res4_conv1_carries_over():
         jwant = jax.nn.relu(jquantize._qconv(jnp.asarray(h.float().numpy()), jleaves,
                                              1, 2, jnp.bfloat16, dilation=2))
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(jwant, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The card kernel's tile and fragment order, in numpy: a tile (crop, band of
+# 4 output rows) stages its input as an int8 window of 8 rows × 84 columns
+# (2 zero columns each side, rows outside the crop zero) with 16-byte chunks
+# XOR-swizzled; a warpgroup takes 64 channels, its warp one output row (5
+# m-tiles), A read by ldmatrix at each tap's offset, B from
+# ``pack_tail_conv``'s wgmma tiles through the descriptor.
+# ---------------------------------------------------------------------------
+
+WIN_ROWS, WIN_COLS, BAND = 8, 84, 4
+
+
+def _swz(pos, c, cin):
+    """``csrc/tail_conv.cu:swz``."""
+    return c ^ ((pos >> 1) & 3) if cin == 64 else c ^ ((pos >> 2) & 1)
+
+
+def _tail_window(xq, band):
+    """int8 crop (80, 80, Cin) → tile ``band``'s int8 window, the bytes as
+    the kernel's shared memory holds them."""
+    cin = xq.shape[-1]
+    win = np.zeros((WIN_ROWS, WIN_COLS, cin), np.int8)
+    for wy in range(WIN_ROWS):
+        y = band * BAND - 2 + wy
+        if 0 <= y < 80:
+            win[wy, 2:82] = xq[y]
+    flat = np.zeros(WIN_ROWS * WIN_COLS * cin, np.int8)
+    pos = np.arange(WIN_ROWS * WIN_COLS)
+    chunks = win.reshape(-1, cin // 16, 16)
+    for c in range(cin // 16):
+        dst = pos * cin + (_swz(pos, c, cin) << 4)
+        flat[dst[:, None] + np.arange(16)] = chunks[:, c]
+    return flat
+
+
+def _emulate_tail_band(flat, tiles, cin, n):
+    """The int32 sums of one band (320 positions, row-major, × n channels):
+    warpgroup h takes channels 64h … 64h + 63, its warp oy output row oy,
+    whose m-tile mi is positions 16·mi … + 15; per k-step, the warpgroup's
+    ``wgmma.m64n64k32`` multiplies each warp's ldmatrix fragment by the 2
+    wgmma tiles at (k-step, 2h) read through the descriptor."""
+    arow, ahalf = _lane_rows()
+    halves = cin // 32
+    flat_b = tiles.reshape(tiles.shape[0], -1)  # (k-steps, N/32 KB)
+    out = np.zeros((BAND * 80, n), np.int64)
+    for warp in range(BAND * n // 64):
+        h, oy = warp // BAND, warp % BAND
+        for mi in range(5):
+            base = oy * WIN_COLS + 16 * mi + arow
+            acc = np.zeros((16, 64), np.int64)
+            for s in range(9 * halves):
+                tap, chunk = s // halves, (s % halves) * 2 + ahalf
+                pos = base + (tap // 3) * 2 * WIN_COLS + (tap % 3) * 2
+                a = _ldmatrix(flat, pos * cin + (_swz(pos, chunk, cin) << 4))
+                acc += a @ _wgmma_b(flat_b[s, 2 * h * 1024:], 64)
+            rows = 80 * oy + 16 * mi
+            out[rows:rows + 16, 64 * h:64 * h + 64] = acc
+    return out
+
+
+@pytest.mark.parametrize("width", [(64, 128), (32, 64)])
+def test_fragment_order_equals_int_conv(width):
+    """Every band (first, inner, last) of one crop, contracted in the
+    kernel's window, swizzle, ldmatrix and descriptor order over
+    ``pack_tail_conv``'s weights, equals ``_int_conv``'s int32 sums; ±127
+    on the crop's border rows and columns."""
+    cin, n = width
+    rng = np.random.default_rng(11)
+    xq = rng.integers(-127, 128, (80, 80, cin), dtype=np.int8)
+    xq[0], xq[-1], xq[:, 0], xq[:, -1] = 127, -127, -127, 127
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, cin, 3, 3), dtype=np.int8))
+    q = quantize.QConv({"wq": wq, "scale": torch.ones(n), "b": torch.zeros(n),
+                        "sx_inv": torch.tensor(1.0)}, padding=2, dilation=2)
+    packed = pack_tail_conv(q).numpy()
+    assert packed.shape == (9 * cin // 32, n // 32, 4, 2, 8, 16)
+    want = quantize._int_conv(torch.from_numpy(xq[None]), q.wmat, n, 3, 3,
+                              padding=2, dilation=2).numpy()[0]
+    assert np.abs(want).max() > 2 ** 15
+    for band in (0, 9, 19):
+        got = _emulate_tail_band(_tail_window(xq, band), packed, cin, n)
+        np.testing.assert_array_equal(got.reshape(BAND, 80, n),
+                                      want[BAND * band:BAND * band + BAND])
+
+
+def _quad_transpose(v):
+    """``csrc/int8_mma.cuh:quad_transpose`` on (32 lanes, 4 words): stage
+    b (1, then 2) trades, with lane t ^ b, the two words whose index has
+    bit b unlike t's (sending them, storing the partner's at index ^ b)."""
+    lane = np.arange(32)
+    v = v.copy()
+    for b in (1, 2):
+        mine = (lane & b) != 0
+        idx = [(j, j ^ b) for j in range(4) if not j & b]  # (kept if t&b, traded)
+        new = v.copy()
+        for lo, hi in idx:
+            send = np.where(mine, v[:, lo], v[:, hi])      # the word unlike t's bit
+            got = send[lane ^ b]
+            new[:, lo] = np.where(mine, got, v[:, lo])
+            new[:, hi] = np.where(mine, v[:, hi], got)
+        v = new
+    return v
+
+
+def test_epilogue_quad_transpose_stores_eight_columns_in_order():
+    """The epilogue's words: lane 4g + t holds columns 2t, 2t+1 of n-tiles
+    j = 0..3 (the mma C fragment); after the quad transpose its four words
+    are n-tile t's columns 0..7 in order, which it stores as 16 bytes at
+    channel 8t."""
+    g, t = np.arange(32) >> 2, np.arange(32) & 3
+    col = lambda j, c: 8 * j + c  # noqa: E731
+    # a word names (row, first column): row·64 + column
+    v = np.stack([g * 64 + col(j, 2 * t) for j in range(4)], 1)
+    got = _quad_transpose(v)
+    for lane in range(32):
+        assert got[lane].tolist() == [g[lane] * 64 + 8 * t[lane] + 2 * e for e in range(4)]
+
+
+def test_the_kernel_s_weights_are_packed_once_per_conv():
+    """``tail_conv`` lays a ``QConv``'s weights out for the tensor cores
+    once and keeps them while its weight matrix is unchanged."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import tail_conv as tc
+
+    inp = tail_conv1.probe_inputs(1)
+    q = tail_conv1.qconv_from_probe(inp["wim"], inp["scale"], inp["bias"], inp["sx_inv"])
+    first = tc._packed(q)
+    assert tc._packed(q) is first
+    np.testing.assert_array_equal(first.numpy(), entry._pack_wgmma(q.wmat).numpy())
+    q.wmat.add_(0)  # an in-place change: packed anew
+    assert tc._packed(q) is not first
