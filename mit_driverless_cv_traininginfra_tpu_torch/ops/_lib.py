@@ -66,11 +66,11 @@ SIGNATURES = {
     # frames, fidx, r0, l0, sx, out, n, B, H, WF, rows, M, win_w, ch, stream
     "mdcv_window_resample": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P),
-    # a, b, scale (or null), out, M, N, K, sam, sak, sbk, sbn, som, son,
-    # out dtype, stream
-    "mdcv_int8_contract": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+    # a, b, scale (or null), out, M, N, K, sam, sak, sbk, sbn, A's and B's
+    # staging modes, out dtype, stream
+    "mdcv_int8_contract": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I,
                            _I, _P),
-    # src, out, idx0, idx1, idx2, params (host int64[19]), in dtype,
+    # src, out, idx0, idx1, idx2, params (host int64[20]), in dtype,
     # out dtype, op, c, partial sums (reduce mode), stream
     "mdcv_strided_map": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
 }

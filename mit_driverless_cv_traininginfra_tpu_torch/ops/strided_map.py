@@ -15,8 +15,12 @@ the per-program base of a DMA window. The op is one of
 - ``sum``: ``out[i0] = Σ f32(x)`` over program i0's block.
 
 :func:`strided_map` launches ``csrc/strided_map.cu`` for CUDA tensors and
-takes :func:`strided_map_plain` for CPU ones. Copies and maps agree bit for
-bit; sums are taken in each version's own order, within
+takes :func:`strided_map_plain` for CPU ones. A map runs on one of three
+kernels, which :func:`pick_path` names once per call from the strides:
+``rows`` (the inner dim contiguous in input and output: 16 bytes a
+thread), ``transpose`` (the input's unit dim is not the output's: tiles
+through shared memory) or ``generic`` (one element a thread). Copies and
+maps agree bit for bit; sums are taken in each version's own order, within
 :data:`SUM_RTOL` of the exact sum of |x| for int8 input. A base that puts
 an element outside ``src``'s storage is refused: the plain version raises
 IndexError, the kernel traps (the launch fails, and the error surfaces at
@@ -26,6 +30,7 @@ the next synchronisation).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -33,6 +38,12 @@ import torch
 from mit_driverless_cv_traininginfra_tpu_torch.ops import _lib
 
 OPS = {"copy": 0, "scale": 1, "quantize": 2, "compare": 3, "sum": 4}
+PATHS = {"rows": 0, "transpose": 1, "generic": 2, "sum": 3}
+# below this many elements a transposed copy is cheaper one element a
+# thread than through shared-memory tiles (H100, device ms, each pair from
+# one call, PERF.md §6: T1a's 26 624 int32 0.00215 tiled against 0.00171
+# one element a thread; T1c's 212 992 bf16 0.00238 tiled against 0.00316)
+TILED_MIN = 1 << 16
 CHUNK = 65536      # elements per reduce block (csrc/strided_map.cu kChunk)
 # Rests on int8 input, which every block-sum probe sums: the kernel's
 # 65 536-value partials are integers below 2²⁴, exact in f32, and only its
@@ -109,6 +120,65 @@ def _dense_inner(dims, strides) -> bool:
     return True
 
 
+def pick_path(op: str, shape, strides, out_strides, indexed: bool):
+    """The kernel a call runs and the rank-4 (dims, input strides, output
+    strides) it is given. Sums keep the view's dims (dim 0 the programs).
+    A map drops size-1 dims, orders the rest by output stride (dim 0 stays
+    first where index arrays give it a base), merges neighbours contiguous
+    in both input and output, and takes
+
+    - ``rows`` where the inner dim has unit stride in both;
+    - ``transpose`` where the output's inner dim has unit stride and
+      another dim has it in the input (no index arrays, from
+      :data:`TILED_MIN` to 2³¹ elements): that dim is put second to last;
+    - ``generic`` otherwise."""
+    if op == "sum":
+        dims, s = _rank4(list(shape), list(strides))
+        return "sum", dims, s, [0, 0, 0, 0]
+    triples = list(zip(shape, strides, out_strides))
+    lead = [triples.pop(0)] if indexed else []
+    triples = sorted((t for t in triples if t[0] != 1), key=lambda t: -t[2])
+    merged = []
+    for d, s, o in triples:
+        if merged and merged[-1][1] == s * d and merged[-1][2] == o * d:
+            merged[-1] = (merged[-1][0] * d, s, o)
+        else:
+            merged.append((d, s, o))
+    if not merged:
+        merged = [(1, 1, 1)]
+    path = "generic"
+    if merged[-1][1] == 1 and merged[-1][2] == 1:
+        path = "rows"
+    elif (merged[-1][2] == 1 and not indexed
+          and TILED_MIN <= math.prod(t[0] for t in merged) < 2 ** 31):
+        units = [i for i, t in enumerate(merged[:-1]) if t[1] == 1]
+        if units:
+            path = "transpose"
+            unit = merged.pop(units[-1])
+            merged.insert(len(merged) - 1, unit)
+    full = lead + [(1, 0, 0)] * (4 - len(lead) - len(merged)) + merged
+    return path, [t[0] for t in full], [t[1] for t in full], [t[2] for t in full]
+
+
+def path_of(src, op: str = "copy", out=None, index=()) -> str:
+    """The kernel :func:`strided_map` runs for these arguments."""
+    out_strides = out.stride() if out is not None else tuple(
+        math.prod(src.shape[d + 1:]) for d in range(src.dim()))
+    return pick_path(op, tuple(src.shape), src.stride(), out_strides, bool(index))[0]
+
+
+@functools.lru_cache(maxsize=4096)
+def _params(op: str, shape, strides, out_strides, ts, lo: int, hi: int):
+    """The kernel's int64 parameter block for one shape of call, built once
+    (kept alive by the cache) and passed by address."""
+    path, dims, s, o = pick_path(op, shape, strides, out_strides, bool(ts))
+    n_block = math.prod(dims[1:])
+    block = (ctypes.c_longlong * 20)(
+        *dims, *s, *o, *ts, *[0] * (3 - len(ts)), (n_block + CHUNK - 1) // CHUNK,
+        int(_dense_inner(dims, s)), lo, hi, PATHS[path])
+    return block, ctypes.addressof(block)
+
+
 def strided_map(src, op: str = "copy", c: float = 1.0, index=(), out=None,
                 out_dtype=None):
     """See the module docstring. ``out``: an optional output view of the
@@ -128,26 +198,26 @@ def strided_map(src, op: str = "copy", c: float = 1.0, index=(), out=None,
     if tuple(out.shape) != out_shape or out.dtype != out_dtype or out.device != src.device:
         raise ValueError(f"out must be {out_shape} {out_dtype} on {src.device}, got "
                          f"{tuple(out.shape)} {out.dtype} on {out.device}")
-    idx = [(i.to(torch.int32).contiguous(), int(t)) for i, t in index]
-    if any(i.shape != (P,) or i.device != src.device for i, _ in idx):
-        raise ValueError(f"each index array must be ({P},) on {src.device}")
-    dims, strides = _rank4(list(src.shape), list(src.stride()))
-    ostr = (_rank4(list(out.shape), list(out.stride()))[1] if op != "sum"
-            else [0, 0, 0, 0])
-    ts = [t for _, t in idx] + [0] * (3 - len(idx))
-    n_block = math.prod(dims[1:])
-    chunks = (n_block + CHUNK - 1) // CHUNK
-    extent = src.untyped_storage().nbytes() // src.element_size()
-    params = (ctypes.c_longlong * 19)(*dims, *strides, *ostr, *ts, chunks,
-                                      int(_dense_inner(dims, strides)),
-                                      -src.storage_offset(),
-                                      extent - src.storage_offset())
-    partial = (torch.empty(P * chunks, dtype=torch.float32, device=src.device)
+    lo = hi = 0
+    if index:
+        idx = [(i.to(torch.int32).contiguous(), int(t)) for i, t in index]
+        if any(i.shape != (P,) or i.device != src.device for i, _ in idx):
+            raise ValueError(f"each index array must be ({P},) on {src.device}")
+        ptrs = [i.data_ptr() for i, _ in idx] + [None] * (3 - len(idx))
+        ts = tuple(t for _, t in idx)
+    else:
+        ptrs, ts = [None, None, None], ()
+    if index or op == "sum":  # the kernels check these programs' spans
+        lo = -src.storage_offset()
+        hi = src.untyped_storage().nbytes() // src.element_size() + lo
+    _, params = _params(op, tuple(src.shape), src.stride(),
+                        None if op == "sum" else out.stride(), ts, lo, hi)
+    partial = (torch.empty(P * ((math.prod(src.shape[1:]) + CHUNK - 1) // CHUNK),
+                           dtype=torch.float32, device=src.device)
                if op == "sum" else None)
-    ptrs = [i.data_ptr() for i, _ in idx] + [None] * (3 - len(idx))
-    with torch.cuda.device(src.device):
+    with _lib.on_device(src.device):
         rc = _lib.lib().mdcv_strided_map(
-            src.data_ptr(), out.data_ptr(), *ptrs, ctypes.addressof(params),
+            src.data_ptr(), out.data_ptr(), *ptrs, params,
             _lib.dtype_code(src.dtype), _lib.dtype_code(out_dtype), OPS[op],
             float(c), None if partial is None else partial.data_ptr(),
             _lib.stream_ptr(src.device))

@@ -314,13 +314,14 @@ def _block_sums(shape, seed, high=127):
 
 def dp4a_case(device, rows: int = 128):
     """P16's function at ``rows``× its rows — S (16·rows, 208, 108) · W
-    (108, 128) — for the card's ``__dp4a`` rate: seeded on the device."""
+    (108, 128) — the contraction at a size the card's memory rate bounds:
+    seeded on the device."""
     S = device_int8((16 * rows, 208, 108), 16, device)
     W = device_int8((108, 128), 17, device)
     return {"a": S.reshape(-1, 108), "b": W}
 
 
-# not a JAX probe: P16's function at 128× its rows, for the __dp4a rate
+# not a JAX probe: P16's function at 128× its rows, its byte-bound case
 DP4A = Probe("P16x128", "tools/probe_mosaic6.py:114", "int8_contract",
              lambda device, small=False: dp4a_case(device, 1 if small else 128),
              _contract((-1, 208, 128)), contract_work)

@@ -12,10 +12,13 @@ with a timeout, because a faulting kernel poisons the CUDA context. For
 each it prints: the kernel, PASS / DIFFERS / FAIL / TIMEOUT, the values
 that differ under the probe's rule (bits; values for the tail conv; the
 f32 sum tolerance for block sums), the kernel's launches, the kernel, plain
-and library times (CUDA events, in the order plain, kernel, kernel, plain)
-and the bound (``chip_smoke.bound``: bytes over 3.35 TB/s or operations
-over the published peak). Two rows are not JAX probes: ``P16x128`` is
-P16's function at 128× its rows (the card's ``__dp4a`` rate) and P22 also
+and library times (CUDA events, in the order plain, kernel, kernel, plain),
+the kernel's and the library call's device time and device kernels a call
+(``chip_smoke.device_kernels``, ``torch.profiler``, 10 calls), the
+kernel route's host µs a call (``chip_smoke.host_us``) and the bound
+(``chip_smoke.bound``: bytes over 3.35 TB/s or operations over the
+published peak). Two rows are not JAX probes: ``P16x128`` is P16's
+function at 128× its rows (the contraction's large case) and P22 also
 times K1 on its 512 boxes. The last line is one JSON object of all rows.
 Unlike the JAX tool, it exits non-zero if any probe fails or differs: on
 Hopper every probe is expected to pass.
@@ -66,9 +69,14 @@ def probe_row(probe: Probe, dev, iters: int) -> dict:
     if iters > 0:
         k_ms, p_ms = cs.paired_ms(lambda: probe.run(inp, KERNEL),
                                   lambda: probe.run(inp, PLAIN), iters)
-        row.update(ms=k_ms, plain_ms=p_ms, library_ms=None)
+        fn = lambda: probe.run(inp, KERNEL)  # noqa: E731
+        _, per_call, dev_ms = cs.device_kernels(fn, 10)
+        row.update(ms=k_ms, plain_ms=p_ms, library_ms=None, device_ms=dev_ms,
+                   kernels_a_call=per_call, host_us=cs.host_us(fn), library_device_ms=None)
         if probe.library is not None:
-            row["library_ms"] = cs.cuda_ms(probe.library(inp), iters)
+            lib = probe.library(inp)
+            row["library_ms"] = cs.cuda_ms(lib, iters)
+            row["library_device_ms"] = cs.device_kernels(lib, 10)[2]
         if probe.beside is not None:
             label, make = probe.beside
             row["beside"] = {"label": label, "ms": cs.cuda_ms(make(inp), iters)}
@@ -118,12 +126,15 @@ def main() -> int:
     cs.phase_build()  # once here; the subprocesses load the cached library
     rows = [attempt(name, args.iters) for name in ALL]
     print(f"{'probe':<26} {'kernel':<16} {'status':<8} {'differ':>7} {'launch':>6} "
-          f"{'ms':>10} {'plain ms':>10} {'lib ms':>10} {'bound ms':>10} by")
+          f"{'ms':>10} {'device ms':>10} {'host us':>10} {'plain ms':>10} {'lib ms':>10} "
+          f"{'lib dev ms':>10} {'bound ms':>10} by")
     for r in rows:
         print(f"{r['name']:<26} {r.get('kernel', '?'):<16} {r['status']:<8} "
               f"{fmt(r.get('differing'), 7)} {fmt(r.get('launches'), 6)} "
-              f"{fmt(r.get('ms'))} {fmt(r.get('plain_ms'))} {fmt(r.get('library_ms'))} "
-              f"{fmt(r.get('bound_ms'))} {r.get('bound_by', '')} {r.get('detail', '')}")
+              f"{fmt(r.get('ms'))} {fmt(r.get('device_ms'))} {fmt(r.get('host_us'))} "
+              f"{fmt(r.get('plain_ms'))} {fmt(r.get('library_ms'))} "
+              f"{fmt(r.get('library_device_ms'))} {fmt(r.get('bound_ms'))} "
+              f"{r.get('bound_by', '')} {r.get('detail', '')}")
         if "beside" in r:
             print(f"{'':<26} beside: {r['beside']['label']} {r['beside']['ms']!r} ms")
     bad = [r["name"] for r in rows if r["status"] != "PASS"]

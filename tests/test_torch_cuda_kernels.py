@@ -730,6 +730,209 @@ def test_strided_map_sums_within_tolerance(cuda, shape):
         assert bool(((got.double() - flat.sum(1)).abs() <= tol).all())
 
 
+def _int8_view(cuda, g, shape, layout, offset):
+    """A (rows, cols) int8 view ``offset`` bytes into a flat buffer: row-major
+    ("rows") or column-major ("cols")."""
+    r, c = shape
+    flat = torch.randint(-127, 128, (offset + r * c + 16,), generator=g, device=cuda,
+                         dtype=torch.int8)
+    strides = (c, 1) if layout == "rows" else (1, r)
+    return flat.as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("N", [40, 77, 130])
+@pytest.mark.parametrize("b_layout", ["n_major", "k_major"])
+@pytest.mark.parametrize("a_layout", ["rows", "cols"])
+@pytest.mark.parametrize("K", [4, 16, 32, 48, 64, 108, 200])
+def test_int8_contract_every_k_and_layout(cuda, K, a_layout, b_layout, N):
+    """int32 and the bf16 epilogue bit for bit at K ∈ {4, …, 200} (one and
+    two K chunks, zero padding), A row- and column-major, B N- and K-major,
+    M and N not tile multiples (64- and 128-column tiles)."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.int8_contract import (
+        int8_contract,
+        int8_contract_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(K * N)
+    M = 203
+    a = _int8_view(cuda, g, (M, K), a_layout, 0)
+    b = _int8_view(cuda, g, (K, N), "rows" if b_layout == "n_major" else "cols", 0)
+    assert torch.equal(int8_contract(a, b), int8_contract_plain(a, b))
+    scale = torch.rand(N, generator=g, device=cuda) * 1e-3
+    got = int8_contract(a, b, scale)
+    assert torch.equal(got.view(torch.int16), int8_contract_plain(a, b, scale).view(torch.int16))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4, 5, 8, 12, 15])
+def test_int8_contract_storage_offsets(cuda, offset):
+    """Operands 1–15 bytes into their storage take the copy their alignment
+    allows (4-byte words or bytes), bit for bit."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.int8_contract import (
+        GATHER,
+        ROW4,
+        TRANS4,
+        int8_contract,
+        int8_contract_plain,
+        staging_modes,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(offset)
+    for K, a_layout in ((108, "rows"), (48, "cols"), (16, "rows")):
+        # column-major A's k stride (its M) a multiple of 4 for the words
+        a = _int8_view(cuda, g, (300 if a_layout == "cols" else 301, K), a_layout, offset)
+        b = _int8_view(cuda, g, (K, 96), "rows", 15 - offset)
+        aligned = offset % 4 == 0
+        want_a = (ROW4 if a_layout == "rows" else TRANS4) if aligned else GATHER
+        assert staging_modes(a, b)[0] == want_a
+        assert torch.equal(int8_contract(a, b), int8_contract_plain(a, b)), (K, a_layout)
+
+
+@pytest.mark.parametrize("K", [32, 64, 108])
+def test_int8_contract_one_tensor_core_kernel_a_call(cuda, K):
+    """P16's shape at 128× its rows (128 × 128 tiles, two blocks an SM),
+    also at K = 32 and 64: int32 and bf16 bit for bit, one kernel a call,
+    and the kernel's SASS holds integer tensor-core MMAs."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.int8_contract import (
+        int8_contract,
+        int8_contract_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(K)
+    a = torch.randint(-127, 128, (16 * 128 * 208, K), generator=g, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, 128), generator=g, device=cuda, dtype=torch.int8)
+    assert torch.equal(int8_contract(a, b), int8_contract_plain(a, b))
+    scale = torch.rand(128, generator=g, device=cuda) * 1e-3
+    assert torch.equal(int8_contract(a, b, scale).view(torch.int16),
+                       int8_contract_plain(a, b, scale).view(torch.int16))
+    kernels, per_call, _ = _smoke().device_kernels(lambda: int8_contract(a, b), 10)
+    assert per_call == 1 and kernels and all("int8_contract" in k for k in kernels), kernels
+    counts = _smoke().sass_count("int8_contract_kernel")
+    if counts is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    assert counts["IMMA"] > 0, counts
+
+
+_MAP_CASES = [("copy", torch.int8), ("copy", torch.bfloat16), ("copy", torch.float32),
+              ("copy", torch.int32), ("scale", torch.bfloat16), ("scale", torch.float32),
+              ("quantize", torch.bfloat16), ("quantize", torch.float32),
+              ("compare", torch.bfloat16), ("compare", torch.float32), ("compare", torch.int8),
+              ("compare", torch.int32)]
+
+
+def _map_input(cuda, dtype, shape, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if dtype in (torch.int8, torch.int32):
+        return torch.randint(-127, 128, shape, generator=g, device=cuda).to(dtype)
+    x = (torch.randn(shape, generator=g, device=cuda) * 0.7).to(dtype)
+    x.view(-1)[:7] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                                   0.5 / 127, -1.5 / 127, 2.5 / 127], dtype=dtype)
+    return x
+
+
+@pytest.mark.parametrize("op,dtype", _MAP_CASES)
+@pytest.mark.parametrize("path", ["rows", "transpose", "generic"])
+def test_strided_map_each_path_op_and_dtype(cuda, path, op, dtype):
+    """Each path × op × dtype at odd sizes, into a fresh output and into an
+    output view with strides, bit for bit (a NaN only has to be a NaN);
+    compare also into every output dtype; one kernel a call."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import (
+        path_of,
+        strided_map,
+        strided_map_plain,
+    )
+
+    x = _map_input(cuda, dtype, (6, 97, 141), len(path) + len(op))
+    view = {"rows": x[:, 1:, 3:], "transpose": x[:, 1:, 3:].transpose(1, 2),
+            "generic": x[:, :, 1::2]}[path]
+    c = {"scale": 2.0, "quantize": 127.0}.get(op, 1.0)
+    assert path_of(view, op) == path
+    _assert_same_bits(strided_map(view, op, c), strided_map_plain(view, op, c))
+    out_dtypes = ([torch.float32, torch.bfloat16, torch.int8, torch.int32] if op == "compare"
+                  else [strided_map_plain(view, op, c).dtype])
+    for od in out_dtypes:
+        big = torch.zeros(view.shape[:-1] + (view.shape[-1] + 7,), dtype=od, device=cuda)
+        out = big[..., 5:5 + view.shape[-1]]
+        assert path_of(view, op, out) == path
+        strided_map(view, op, c, out=out, out_dtype=od)
+        _assert_same_bits(out, strided_map_plain(view, op, c, out_dtype=od))
+        assert not big[..., :5].any() and not big[..., 5 + view.shape[-1]:].any()
+    kernels, per_call, _ = _smoke().device_kernels(lambda: strided_map(view, op, c), 10)
+    assert per_call == 1 and kernels, (per_call, kernels)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset", [0, 1, 3, 7, 8, 15])
+def test_strided_map_rows_with_unaligned_heads_and_tails(cuda, offset, dtype):
+    """The rows path on views 0–15 elements into their storage, rows of
+    odd lengths whose starts fall anywhere in the 16-byte grid, output rows
+    with another alignment: copy and quantize bit for bit; and Q8's shape
+    cut to 3 frames."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import (
+        path_of,
+        strided_map,
+        strided_map_plain,
+    )
+
+    x = _map_input(cuda, dtype, (offset + 5 * 11 * 61 + 40,), offset)
+    view = x[offset:offset + 5 * 11 * 61].view(5, 11, 61)[:, :, 2:59]
+    ops = ["copy"] + (["quantize"] if dtype != torch.int8 else [])
+    for op in ops:
+        assert path_of(view, op) == "rows"
+        _assert_same_bits(strided_map(view, op, 127.0), strided_map_plain(view, op, 127.0))
+        out = torch.zeros((5, 11, 64), dtype=strided_map_plain(view, op, 127.0).dtype,
+                          device=cuda)[:, :, 3 + offset % 4:60 + offset % 4]
+        strided_map(view, op, 127.0, out=out)
+        _assert_same_bits(out, strided_map_plain(view, op, 127.0))
+    if dtype == torch.bfloat16 and offset == 0:
+        q8 = torch.rand((3, 416, 1248), device=cuda).to(torch.bfloat16)
+        assert torch.equal(strided_map(q8, "quantize", 127.0),
+                           strided_map_plain(q8, "quantize", 127.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32, torch.int32])
+@pytest.mark.parametrize("shape,perm", [((416, 1248), (1, 0)), ((64, 32, 208), (1, 2, 0)),
+                                        ((16, 64, 208), (0, 2, 1)), ((9, 37, 41, 6), (2, 0, 3, 1)),
+                                        ((33, 1, 2049), (2, 1, 0)), ((128, 208), (1, 0))])
+def test_strided_map_transposes_bit_for_bit(cuda, shape, perm, dtype):
+    """Transposed and permuted views (T15's, T14's, T1c's shapes, a 4-D
+    permute with a dim of 6, a size-1 dim) copied through shared-memory
+    tiles, ragged tile edges included; T1a's, under ``TILED_MIN``
+    elements, one element a thread."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import TILED_MIN
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import (
+        path_of,
+        strided_map,
+        strided_map_plain,
+    )
+
+    view = _map_input(cuda, dtype, shape, len(shape)).permute(*perm)
+    assert path_of(view) == ("transpose" if view.numel() >= TILED_MIN else "generic")
+    _assert_same_bits(strided_map(view), strided_map_plain(view))
+
+
+def test_strided_map_windows_with_index_bases(cuda):
+    """Per-program bases from three index arrays on the rows path (P20's
+    kind of window) and on the generic path (a strided inner dim), bit for
+    bit."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.strided_map import (
+        path_of,
+        strided_map,
+        strided_map_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(20)
+    frames = torch.rand((6, 50, 90), generator=g, device=cuda).to(torch.bfloat16)
+    i = lambda v: torch.tensor(v, dtype=torch.int32, device=cuda)  # noqa: E731
+    index = [(i([5, 0, 3, 1]), 50 * 90), (i([0, 7, 19, 3]), 90), (i([1, 0, 33, 60]), 1)]
+    for view in (frames.as_strided((4, 31, 29), (0, 90, 1)),
+                 frames.as_strided((4, 31, 14), (0, 90, 2))):
+        want = strided_map_plain(view, index=index)
+        assert path_of(view, index=index) == ("rows" if view.stride(2) == 1 else "generic")
+        assert torch.equal(strided_map(view, index=index).view(torch.int16),
+                           want.view(torch.int16))
+
+
 def test_window_resample_matches_plain_at_the_edges(cuda):
     """Columns at the window's first and last tap, between taps, outside
     it and NaN: bit for bit."""
