@@ -47,7 +47,8 @@ hand-written CUDA kernels:
    ``int8_contract`` and ``strided_map`` against its plain route (bits
    equal; block sums within their f32 tolerance), each one wrapper launch
    a call (``lane_subrange_write`` two); ``int8_contract``'s SASS holds
-   integer tensor-core instructions; then ``tail_conv`` on
+   integer tensor-core instructions (its and ``window_resample``'s
+   registers printed); then ``tail_conv`` on
    the int8 RektNet's own ``res4.conv1`` — its input the activations that
    ``res[0..2]`` make of the K1 crops of the served frames, 64 crops —
    value-equal to ``relu(_qconv(h, res4.conv1))``, one kernel a call
@@ -58,7 +59,10 @@ hand-written CUDA kernels:
    112, ``strided_map`` on Q17's sums with Q8's quantize and T15's
    transpose beside);
 8. K2 backward against its plain version at (224, 80, 80), f32 and bf16,
-   with and without a probabilities' gradient, and its device time;
+   with and without a probabilities' gradient, one device kernel a call,
+   its registers and its device time, ``torch._softmax_backward_data`` on
+   a precomputed ``gp`` beside it as a yardstick; again at 896 rows
+   (B=128);
 9. training: one f32 ``rektnet_train_step`` on the card against the CPU
    from the same seeded parameters and batch (loss, updated parameters,
    running stats); 20 bf16 and 20 f32 steps on the card (finite losses,
@@ -1050,6 +1054,8 @@ def phase_probes(dev, rows: dict, yolo, rekt, frames_np, thresh, smi) -> None:
         f"launches over the probe path {launches}")
     check(all(launches[k] > 0 for k in PROBE_KERNELS),
           f"a probe kernel never launched on the probe path: {launches}")
+    for line in ptxas_lines("window_resample_kernel"):
+        log(f"window_resample ptxas: {line}")
     sass_ic = sass_count("int8_contract_kernel")
     for line in ptxas_lines("int8_contract_kernel") + ptxas_lines("4mdcv2sm"):
         log(f"probe kernels ptxas: {line}")
@@ -1145,6 +1151,7 @@ def probe_timing(probe, inp, out, smi) -> dict:
 
 def phase_k2_bwd(dev, rows: dict) -> None:
     from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
+        _coord_rows,
         _torch_softargmax,
         _torch_softargmax_bwd,
         softargmax_bwd,
@@ -1155,37 +1162,61 @@ def phase_k2_bwd(dev, rows: dict) -> None:
     z32 = torch.from_numpy(rng.normal(0, 3, (m, 80, 80)).astype(np.float32)).to(dev)
     g_pts = torch.from_numpy(rng.normal(0, 1, (m, 2)).astype(np.float32)).to(dev)
     g_pr32 = torch.from_numpy(rng.normal(0, 1e-2, (m, 80, 80)).astype(np.float32)).to(dev)
+    for line in ptxas_lines("softargmax_bwd_kernel"):
+        log(f"K2-bwd ptxas: {line}")
+
+    def held(probs, g, g_probs=None) -> float:
+        """K2-bwd against its plain version; the largest |difference|."""
+        got = softargmax_bwd(probs, g, g_probs).float()
+        ref = _torch_softargmax_bwd(probs, g, g_probs).float()
+        d = (got - ref).abs()
+        # dz = p·(gp − s): the row sum s is taken in another order
+        # (a block reduction against torch's), which moves dz by p·Δs,
+        # within 1e-5 of the row's largest |dz|; bf16 also rounds the
+        # result, one bf16 ulp (2^-7 relative) where Δs crosses a
+        # rounding boundary
+        rtol = 0.0 if probs.dtype == torch.float32 else 2 ** -7
+        log(f"K2-bwd softargmax_bwd {str(probs.dtype)[6:]} g_probs "
+            f"{'given' if g_probs is not None else 'None'}: M={probs.shape[0]} max|d|="
+            f"{float(d.max())!r} (max|dz| {float(ref.abs().max())!r})")
+        check(bool((d <= 1e-5 * ref.abs().max() + rtol * ref.abs()).all()),
+              f"K2-bwd {probs.dtype} disagrees at {probs.shape[0]} rows")
+        return float(d.max())
+
     errs = []
     for dt in (torch.float32, torch.bfloat16):
         _, probs = _torch_softargmax(z32.to(dt))
         for g_probs in (g_pr32.to(dt), None):
-            got = softargmax_bwd(probs, g_pts, g_probs)
-            ref = _torch_softargmax_bwd(probs, g_pts, g_probs)
-            torch.cuda.synchronize()
-            d = (got.float() - ref.float()).abs()
-            scale = float(ref.float().abs().max())
-            # dz = p·(gp − s): the row sum s is taken in another order
-            # (a block reduction against torch's), which moves dz by p·Δs,
-            # within 1e-5 of the row's largest |dz|; bf16 also rounds the
-            # result, one bf16 ulp (2^-7 relative) where Δs crosses a
-            # rounding boundary
-            rtol = 0.0 if dt == torch.float32 else 2 ** -7
-            ok = bool((d <= 1e-5 * scale + rtol * ref.float().abs()).all())
-            log(f"K2-bwd softargmax_bwd {str(dt)[6:]} g_probs "
-                f"{'given' if g_probs is not None else 'None'}: M={m} max|d|="
-                f"{float(d.max())!r} (max|dz| {scale!r})")
-            check(ok, f"K2-bwd {dt} disagrees")
-            errs.append(float(d.max()))
+            errs.append(held(probs, g_pts, g_probs))
         if dt == torch.bfloat16:  # the training path's case: bf16, no g_probs
             k_ms, p_ms = paired_ms(lambda: softargmax_bwd(probs, g_pts),
                                    lambda: _torch_softargmax_bwd(probs, g_pts))
             kernels, per_call, dev_ms = device_kernels(lambda: softargmax_bwd(probs, g_pts), 20)
+            # a yardstick, not one call computing the same function: the
+            # row reduction and the elementwise pass of dz on a gp computed
+            # beforehand, in the probabilities' dtype
+            xv, yv = _coord_rows(80, 80, dev)
+            gp = (g_pts[:, :1] * xv + g_pts[:, 1:] * yv).to(dt).reshape(probs.shape)
+            sbd = lambda: torch._softmax_backward_data(gp, probs, 2, dt)  # noqa: E731
+            sbd_dev_ms = device_kernels(sbd, 20)[2]
             log(f"K2-bwd bf16: kernel {k_ms!r} ms (device {dev_ms!r} ms, {per_call!r} "
-                f"launches a call, {sorted(set(kernels))}) plain {p_ms!r} ms")
+                f"launches a call, {sorted(set(kernels))}) plain {p_ms!r} ms; "
+                f"torch._softmax_backward_data on a precomputed gp (a yardstick) "
+                f"{cuda_ms(sbd)!r} ms (device {sbd_dev_ms!r} ms)")
+            check(per_call == 1 and kernels and all("softargmax_bwd" in k for k in kernels),
+                  f"K2-bwd is not one device kernel a call: {per_call}, {kernels}")
             b = bound(nbytes(probs, g_pts, probs), 8 * probs.numel(), "f32")
             rows["softargmax_bwd"].update(ms=k_ms, plain_ms=p_ms, library_ms=None,
-                                          device_ms=dev_ms, kernels_per_call=per_call, **b)
-    rows["softargmax_bwd"]["max_abs_err"] = max(errs)
+                                          device_ms=dev_ms, kernels_per_call=per_call,
+                                          softmax_backward_data_device_ms=sbd_dev_ms, **b)
+    # B=128's batch: 896 rows, bf16, no g_probs
+    z896 = torch.from_numpy(rng.normal(0, 3, (4 * m, 80, 80)).astype(np.float32)).to(dev)
+    g896 = torch.from_numpy(rng.normal(0, 1, (4 * m, 2)).astype(np.float32)).to(dev)
+    _, p896 = _torch_softargmax(z896.to(torch.bfloat16))
+    errs.append(held(p896, g896))
+    dev896 = device_kernels(lambda: softargmax_bwd(p896, g896), 20)[2]
+    log(f"K2-bwd bf16 M={4 * m}: device {dev896!r} ms")
+    rows["softargmax_bwd"].update(device_ms_896=dev896, max_abs_err=max(errs))
 
 
 # ---------------------------------------------------------------------------

@@ -30,10 +30,27 @@
 //
 // The backward replaces the XLA code of the same file's custom VJP
 // (pallas_kernels.py:_bwd): with gp = g_probs + g_x·xv + g_y·yv over a
-// row, dz = p·(gp − Σ gp·p). One block per row again: a sweep that forms
-// gp and reduces Σ gp·p, then an elementwise sweep that writes dz in the
-// probabilities' dtype; g_probs may be null (treated as zeros). All in
-// f32; bound: bytes (probabilities, their gradient and dz, once each).
+// row, dz = p·(gp − Σ gp·p), written in the probabilities' dtype; g_probs
+// may be null (treated as zeros). Bound: bytes (the probabilities, their
+// gradient and dz, once each). The forward's design carried over: one
+// block per row whose threads each hold two 16-byte vectors of it (8 bf16
+// each) or four (4 f32 each), 400 threads at 80×80, so a training batch
+// of 224 rows is on the card in one wave (up to three blocks an SM; one
+// vector a thread, 800 threads, needs two blocks an SM and so 32
+// registers, and spilled). The vectors of p and g_probs are read once, as
+// 16-byte loads issued before the coordinate tables are staged, and kept
+// packed in registers; gp comes from the same w + h tables in shared
+// memory as the forward's (a vector inside one map row reads its xs as 16
+// bytes and one ys). Each thread sums the f32 products gp·p per vector in
+// f64, then one block reduction in f64 (warp shuffles, one shared step,
+// warp shuffles over the warps' partials), rounded to f32 once: the row
+// sum is the exact one, rounded, so dz moves from the plain version's only
+// by the plain sum's own rounding, where a peaked row's gp − s cancels.
+// Then dz is formed from the registers — gp recomputed, the same
+// arithmetic — and written as 16-byte stores. Rows that are not a
+// multiple of the vector, or whose base is not 16-byte aligned, go element
+// by element with a masked tail; a row longer than the block's registers
+// takes the rest from memory again in the second sweep.
 #include <algorithm>
 
 #include "common.cuh"
@@ -85,6 +102,17 @@ __device__ __forceinline__ void load_vec(const T* z, int j, int hw, bool vec, fl
   }
 #pragma unroll
   for (int q = 0; q < V; ++q) v[q] = j * V + q < hw ? to_f32(z[j * V + q]) : -INFINITY;
+}
+
+// The row's vector j as its 16 packed bytes (V values of T); 0 past the
+// row's end.
+template <typename T, int V>
+__device__ __forceinline__ uint4 load_raw(const T* z, int j, int hw, bool vec) {
+  if (vec && (j + 1) * V <= hw) return __ldg(reinterpret_cast<const uint4*>(z + j * V));
+  alignas(16) T t[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) t[q] = j * V + q < hw ? z[j * V + q] : from_f32<T>(0.f);
+  return *reinterpret_cast<const uint4*>(t);
 }
 
 template <typename T, int V>
@@ -162,6 +190,18 @@ __device__ __forceinline__ float2 block_sum2_once(float2 v, float2* part) {
   __syncthreads();
   float2 r = make_float2(0.f, 0.f);
   for (int a = 0; a < int(blockDim.x) / kWarp; ++a) r.x += part[a].x, r.y += part[a].y;
+  return r;
+}
+
+// f64, and the warps' partials summed by the same xor shuffles in every
+// warp (lane a holds warp a's, 0 past the last warp), not one after another
+__device__ __forceinline__ double block_sum_f64_once(double v, double* part) {
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (threadIdx.x % kWarp == 0) part[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  const int lane = threadIdx.x % kWarp;
+  double r = lane < int(blockDim.x) / kWarp ? part[lane] : 0.0;
+  for (int o = kWarp / 2; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
   return r;
 }
 
@@ -282,55 +322,164 @@ cudaError_t launch(const void* logits, const float* xs, const float* ys, void* p
   return cudaGetLastError();
 }
 
+// The backward's vectors a thread holds: two of bf16 (8 values each),
+// four of f32 (4 each), 400 threads a row at 80×80; and its largest block
+template <typename T> constexpr int kBwdVecs = sizeof(T) == 2 ? 2 : 4;
+constexpr int kMaxBwdThreads = 1024;
+
+// gp = g_probs + (g_x·xs[i % w] + g_y·ys[i / w]) for the vector's elements
+// i = j·V + q below hw, as the plain version rounds it (without g_probs,
+// the bracket alone); 0 past the end. tab: xs then ys
+template <int V>
+__device__ __forceinline__ void grad_vec(const float* gpr, bool has_g, int j, int hw, int w,
+                                         bool in_row, const float* tab, float gx, float gy,
+                                         float* gp) {
+  int r = (j * V) / w, c = j * V - r * w;
+  if (in_row) {  // one map row: xs[c, c + V) as 16-byte loads, one ys
+    float x[V];
+#pragma unroll
+    for (int q = 0; q < V; q += 4) unpack16(tab + c + q, x + q);
+    const float yy = gy * tab[w + r];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const float up = gx * x[q] + yy;
+      gp[q] = has_g ? gpr[q] + up : up;
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    gp[q] = 0.f;
+    if (j * V + q < hw) {
+      const float up = gx * tab[c] + gy * tab[w + r];
+      gp[q] = has_g ? gpr[q] + up : up;
+    }
+    if (++c == w) c = 0, ++r;
+  }
+}
+
+// One row a block; thread t holds the vectors j = a·blockDim + t (a <
+// kBwdVecs), coalesced, as packed bytes. Vectors past those (rows longer
+// than blockDim·kBwdVecs vectors) are read again in each sweep.
 template <typename T>
-__global__ void softargmax_bwd_kernel(const T* __restrict__ probs, const T* __restrict__ g_probs,
-                                      const float* __restrict__ g_pts,
-                                      const float* __restrict__ xv,
-                                      const float* __restrict__ yv, T* __restrict__ dz,
-                                      int hw) {
-  __shared__ float scratch[32];
+__global__ void __launch_bounds__(kMaxBwdThreads)
+    softargmax_bwd_kernel(const T* __restrict__ probs, const T* __restrict__ g_probs,
+                          const float* __restrict__ g_pts, const float* __restrict__ xs,
+                          const float* __restrict__ ys, T* __restrict__ dz, int h, int w) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int NV = kBwdVecs<T>;
+  extern __shared__ __align__(16) float tab[];  // xs[0, w), then ys[0, h)
+  __shared__ double part[kMaxWarps];
+  const int tid = threadIdx.x, nt = blockDim.x, hw = h * w;
   const size_t row = blockIdx.x;
   const T* p = probs + row * hw;
   const T* gpr = g_probs ? g_probs + row * hw : nullptr;
-  const float gx = g_pts[2 * row], gy = g_pts[2 * row + 1];
-  float s = 0.f;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) {
-    const float up = gx * xv[i] + gy * yv[i];
-    const float gp = gpr ? to_f32(gpr[i]) + up : up;
-    s += gp * to_f32(p[i]);
-  }
-  s = block_sum(s, scratch);
+  const bool has_g = gpr != nullptr;
   T* out = dz + row * hw;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) {
-    const float up = gx * xv[i] + gy * yv[i];
-    const float gp = gpr ? to_f32(gpr[i]) + up : up;
-    out[i] = from_f32<T>(to_f32(p[i]) * (gp - s));
+  auto aligned = [](const void* a) { return reinterpret_cast<uintptr_t>(a) % 16 == 0; };
+  // 16-byte access needs rows that start on 16 bytes
+  const bool vec = hw % V == 0 && aligned(probs) && aligned(dz) && (!g_probs || aligned(g_probs));
+  const bool in_row = vec && w % V == 0;  // every vector lies in one map row
+  const int nvec = (hw + V - 1) / V;
+
+  uint4 pr[NV], gr[NV];
+#pragma unroll
+  for (int a = 0; a < NV; ++a) {
+    const int j = a * nt + tid;
+    pr[a] = gr[a] = make_uint4(0, 0, 0, 0);  // zeros in either dtype
+    if (j < nvec) {
+      pr[a] = load_raw<T, V>(p, j, hw, vec);
+      if (gpr) gr[a] = load_raw<T, V>(gpr, j, hw, vec);
+    }
+  }
+  for (int i = tid; i < w; i += nt) tab[i] = xs[i];
+  for (int i = tid; i < h; i += nt) tab[w + i] = ys[i];
+  const float gx = g_pts[2 * row], gy = g_pts[2 * row + 1];
+  __syncthreads();
+
+  // Σ gp·p of the f32 products, in f64: per vector, then over the thread's
+  // vectors, then the block; rounded to f32 once
+  double s = 0.0;
+  float pv[V], gv[V], gp[V];
+#pragma unroll
+  for (int a = 0; a < NV; ++a) {
+    const int j = a * nt + tid;
+    if (j < nvec) {
+      unpack16(reinterpret_cast<const T*>(&pr[a]), pv);
+      unpack16(reinterpret_cast<const T*>(&gr[a]), gv);
+      grad_vec<V>(gv, has_g, j, hw, w, in_row, tab, gx, gy, gp);
+      double sv = 0.0;
+#pragma unroll
+      for (int q = 0; q < V; ++q) sv += double(gp[q] * pv[q]);
+      s += sv;
+    }
+  }
+  for (int j = NV * nt + tid; j < nvec; j += nt) {
+    const uint4 pj = load_raw<T, V>(p, j, hw, vec);
+    const uint4 g = gpr ? load_raw<T, V>(gpr, j, hw, vec) : make_uint4(0, 0, 0, 0);
+    unpack16(reinterpret_cast<const T*>(&pj), pv);
+    unpack16(reinterpret_cast<const T*>(&g), gv);
+    grad_vec<V>(gv, has_g, j, hw, w, in_row, tab, gx, gy, gp);
+    double sv = 0.0;
+#pragma unroll
+    for (int q = 0; q < V; ++q) sv += double(gp[q] * pv[q]);
+    s += sv;
+  }
+  const float sum = float(block_sum_f64_once(s, part));
+
+  // dz = p·(gp − s)
+#pragma unroll
+  for (int a = 0; a < NV; ++a) {
+    const int j = a * nt + tid;
+    if (j < nvec) {
+      unpack16(reinterpret_cast<const T*>(&pr[a]), pv);
+      unpack16(reinterpret_cast<const T*>(&gr[a]), gv);
+      grad_vec<V>(gv, has_g, j, hw, w, in_row, tab, gx, gy, gp);
+#pragma unroll
+      for (int q = 0; q < V; ++q) gp[q] = pv[q] * (gp[q] - sum);
+      store_vec<T, V>(out, j, hw, vec, gp);
+    }
+  }
+  for (int j = NV * nt + tid; j < nvec; j += nt) {
+    const uint4 pj = load_raw<T, V>(p, j, hw, vec);
+    const uint4 g = gpr ? load_raw<T, V>(gpr, j, hw, vec) : make_uint4(0, 0, 0, 0);
+    unpack16(reinterpret_cast<const T*>(&pj), pv);
+    unpack16(reinterpret_cast<const T*>(&g), gv);
+    grad_vec<V>(gv, has_g, j, hw, w, in_row, tab, gx, gy, gp);
+#pragma unroll
+    for (int q = 0; q < V; ++q) gp[q] = pv[q] * (gp[q] - sum);
+    store_vec<T, V>(out, j, hw, vec, gp);
   }
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* probs, const void* g_probs, const float* g_pts,
-                       const float* xv, const float* yv, void* dz, int M, int hw,
+                       const float* xs, const float* ys, void* dz, int M, int h, int w,
                        cudaStream_t stream) {
-  softargmax_bwd_kernel<T><<<M, 256, 0, stream>>>(
-      static_cast<const T*>(probs), static_cast<const T*>(g_probs), g_pts, xv, yv,
-      static_cast<T*>(dz), hw);
+  const int nvec = (h * w + 16 / int(sizeof(T)) - 1) / (16 / int(sizeof(T)));
+  const int want = (nvec + kBwdVecs<T> - 1) / kBwdVecs<T>;
+  const int threads = std::min(kMaxBwdThreads, (want + kWarp - 1) / kWarp * kWarp);
+  softargmax_bwd_kernel<T><<<M, threads, (h + w) * sizeof(float), stream>>>(
+      static_cast<const T*>(probs), static_cast<const T*>(g_probs), g_pts, xs, ys,
+      static_cast<T*>(dz), h, w);
   return cudaGetLastError();
 }
 
 }  // namespace mdcv
 
 extern "C" int mdcv_softargmax_bwd(const void* probs, const void* g_probs, const void* g_pts,
-                                   const void* xv, const void* yv, void* dz, int M, int hw,
-                                   int dtype, void* stream) {
+                                   const void* xs, const void* ys, void* dz, int M, int h,
+                                   int w, int dtype, void* stream) {
   if (M == 0) return 0;
+  // the tables must fit the 48 KB of shared memory a launch gets unasked
+  if (h < 1 || w < 1 || h + w > 10240) return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto g = static_cast<const float*>(g_pts);
-  auto x = static_cast<const float*>(xv);
-  auto y = static_cast<const float*>(yv);
-  if (dtype == 0) return mdcv::launch_bwd<float>(probs, g_probs, g, x, y, dz, M, hw, s);
+  auto x = static_cast<const float*>(xs);
+  auto y = static_cast<const float*>(ys);
+  if (dtype == 0) return mdcv::launch_bwd<float>(probs, g_probs, g, x, y, dz, M, h, w, s);
   if (dtype == 1)
-    return mdcv::launch_bwd<__nv_bfloat16>(probs, g_probs, g, x, y, dz, M, hw, s);
+    return mdcv::launch_bwd<__nv_bfloat16>(probs, g_probs, g, x, y, dz, M, h, w, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -58,8 +58,8 @@ SIGNATURES = {
     # x, w1, s1, b1, w3, s3, b3, sx1, sx3, sx_out, ybf, yq, tq,
     # B, S, C, n_blocks, slope, dtype, stream
     "mdcv_res_stage": (_P,) * 13 + (_I, _I, _I, _I, _F, _I, _P),
-    # probs, g_probs (or null), g_pts, xv, yv, dz, M, HW, dtype, stream
-    "mdcv_softargmax_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # probs, g_probs (or null), g_pts, xs, ys, dz, M, h, w, dtype, stream
+    "mdcv_softargmax_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w_nk, scale, bias, sx_inv, out, C, H, W, Cin, N, dilation, dtype,
     # stream
     "mdcv_tail_conv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -41,7 +41,7 @@ def _linspace_f32(stop: float, num: int):
 @functools.cache
 def _coord_tables(h: int, w: int, device="cpu"):
     """The f32 grids (xs of w entries, ys of h) over
-    ``linspace(0, (n−1)/n, n)`` that K2's forward kernel reads:
+    ``linspace(0, (n−1)/n, n)`` that K2's kernels read:
     ``xv[i] = xs[i % w]``, ``yv[i] = ys[i // w]``. Built on the CPU and
     copied once per device, so the device's arithmetic never enters the
     grid and no call pays a host→device copy."""
@@ -54,11 +54,19 @@ def _coord_tables(h: int, w: int, device="cpu"):
 def _coord_rows(h: int, w: int, device="cpu"):
     """(1, h·w) f32 coordinate rows (x, y), bit-equal to the JAX package's
     ``_coord_rows``: the tables of :func:`_coord_tables` laid along the
-    flattened map (the plain version and K2's backward read them)."""
+    flattened map (the plain versions read them)."""
     xs, ys = _coord_tables(h, w)
     yv = ys.repeat_interleave(w)  # y varies over rows of the map
     xv = xs.repeat(h)
     return xv[None, :].to(device), yv[None, :].to(device)
+
+
+def _check_tables(h: int, w: int) -> None:
+    """K2's kernels hold the w + h coordinate tables in the 48 KB of
+    shared memory a launch gets unasked."""
+    if h + w > 10240:
+        raise ValueError(f"a {h}×{w} map's coordinate tables exceed the "
+                         f"kernel's shared memory")
 
 
 def _torch_softargmax(logits):
@@ -79,14 +87,12 @@ def _cuda_softargmax(logits):
     """K2 forward launch: the outputs of :func:`_torch_softargmax`."""
     m, h, w = logits.shape
     code = _lib.dtype_code(logits.dtype)
-    if h + w > 10240:
-        raise ValueError(f"a {h}×{w} map's coordinate tables exceed the "
-                         f"kernel's shared memory")
+    _check_tables(h, w)
     z = logits.contiguous()
     xs, ys = _coord_tables(h, w, logits.device)
     probs = torch.empty_like(z)
     pts = torch.empty((m, 2), dtype=torch.float32, device=logits.device)
-    with torch.cuda.device(logits.device):
+    with _lib.on_device(logits.device):
         rc = _lib.lib().mdcv_softargmax(
             z.data_ptr(), xs.data_ptr(), ys.data_ptr(), probs.data_ptr(),
             pts.data_ptr(), m, h, w, code, _lib.stream_ptr(logits.device))
@@ -126,13 +132,16 @@ def softargmax_bwd(probs, g_pts, g_probs=None):
         raise ValueError(f"gradients {tuple(gpts.shape)}, "
                          f"{None if gpr is None else tuple(gpr.shape)} do not "
                          f"fit probs {tuple(p.shape)}")
-    xv, yv = _coord_rows(h, w, probs.device)
+    _check_tables(h, w)
+    xs, ys = _coord_tables(h, w, probs.device)
     dz = torch.empty_like(p)
-    with torch.cuda.device(probs.device):
+    if m == 0:
+        return dz
+    with _lib.on_device(probs.device):
         rc = _lib.lib().mdcv_softargmax_bwd(
             p.data_ptr(), None if gpr is None else gpr.data_ptr(),
-            gpts.data_ptr(), xv.data_ptr(), yv.data_ptr(), dz.data_ptr(), m,
-            h * w, code, _lib.stream_ptr(probs.device))
+            gpts.data_ptr(), xs.data_ptr(), ys.data_ptr(), dz.data_ptr(), m,
+            h, w, code, _lib.stream_ptr(probs.device))
     _lib.check(rc, "softargmax_bwd")
     softargmax_bwd.launches += 1
     return dz
@@ -238,7 +247,7 @@ def _cuda_nms_topk(boxes, scores, conf_thresh: float, k: int,
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     out_keep = torch.empty((B, k), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
+    with _lib.on_device(dev):
         rc = _lib.lib().mdcv_nms_topk(
             b.data_ptr(), s.data_ptr(), out_b.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), out_keep.data_ptr(), B, N, k, conf_thresh,

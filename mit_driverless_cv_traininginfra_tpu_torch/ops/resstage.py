@@ -263,7 +263,7 @@ def _cuda_res_stage(x_flat, pk, S: int, n_blocks: int, leaky_slope: float):
     ybf = torch.empty_like(x)
     yq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     tq = torch.empty((B * P, C // 2), dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
+    with _lib.on_device(x.device):
         rc = _lib.lib().mdcv_res_stage(
             x.data_ptr(), pk["w1_tc"].data_ptr(), pk["s1"].data_ptr(),
             pk["b1"].data_ptr(), pk["w3_tc"].data_ptr(), pk["s3"].data_ptr(),

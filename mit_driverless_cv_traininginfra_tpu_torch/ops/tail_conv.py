@@ -89,7 +89,7 @@ def tail_conv(h, q: QConv):
     scale, bias = q.scale.contiguous(), q.b.contiguous()
     sx_inv = q.sx_inv.reshape(1).contiguous()
     out = torch.empty((C, H, W, n), dtype=torch.bfloat16, device=h.device)
-    with torch.cuda.device(h.device):
+    with _lib.on_device(h.device):
         rc = _lib.lib().mdcv_tail_conv(
             x.data_ptr(), wtiles.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             sx_inv.data_ptr(), out.data_ptr(), C, H, W, cin, n, q.dilation,

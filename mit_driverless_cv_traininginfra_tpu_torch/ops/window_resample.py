@@ -79,7 +79,7 @@ def window_resample(frames, fidx, r0, l0, sx, rows: int = 80,
     idx = [t.to(torch.int32).contiguous() for t in (fidx, r0, l0)]
     s = sx.float().contiguous()
     out = torch.empty((n, rows, M * ch), dtype=f.dtype, device=f.device)
-    with torch.cuda.device(f.device):
+    with _lib.on_device(f.device):
         rc = _lib.lib().mdcv_window_resample(
             f.data_ptr(), idx[0].data_ptr(), idx[1].data_ptr(), idx[2].data_ptr(),
             s.data_ptr(), out.data_ptr(), n, B, H, WF, rows, M, win_w, ch,

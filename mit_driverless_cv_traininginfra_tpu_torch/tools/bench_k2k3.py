@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Device time of K2's forward (soft-argmax), K3 (threshold + top-k +
-NMS), K5 (the int8 residual stage), ``tail_conv`` (RektNet's int8
-``res4.conv1``) and the probe kernels ``int8_contract`` and ``strided_map``
-at their shapes, on one card, in two checkouts.
+"""Device time of K2 (soft-argmax, forward and backward), K3 (threshold +
+top-k + NMS), K5 (the int8 residual stage), ``tail_conv`` (RektNet's int8
+``res4.conv1``) and the probe kernels ``window_resample``, ``int8_contract``
+and ``strided_map`` at their shapes, on one card, in two checkouts.
 
     python3 mit_driverless_cv_traininginfra_tpu_torch/tools/bench_k2k3.py --roots OLD,NEW
     python3 mit_driverless_cv_traininginfra_tpu_torch/tools/bench_k2k3.py --roots OLD,NEW --parts probes
+    python3 mit_driverless_cv_traininginfra_tpu_torch/tools/bench_k2k3.py --roots OLD,NEW --parts k2bwd,resample
 
 For the order OLD, NEW, NEW, OLD (one root: once), a fresh process in
 each checkout imports that checkout's ``chip_smoke.py`` and port, builds
@@ -16,12 +17,22 @@ its kernels, and times the public wrappers on the same seeded inputs.
   capacity 64 and 112) in bf16 and f32, with how many bf16 probabilities
   lie outside atol 1e-6 + rtol 2^-8 of the plain version's bf16 and
   unrounded f32 probabilities (the smoke's draws and the GPU test's);
+- ``k2bwd``: ``softargmax_bwd`` at 224 and 896 rows of 80×80 (the
+  training batch at B=32 and B=128) in bf16 and f32, without and with a
+  probabilities' gradient, on probabilities of the plain forward, each
+  held to the plain version within the smoke's tolerance (1e-5 of the
+  largest |dz|, one bf16 ulp); beside each, the device ms of
+  ``torch._softmax_backward_data`` on a precomputed ``gp`` (a yardstick of
+  the row reduction and the elementwise pass, not the same function);
 - ``k3``: ``nms_topk`` at B=8 and B=1 of N=10647 f32 candidates
   (``chip_smoke.nms_inputs``);
 - ``k5``: ``fused_res_stage`` on the 26² stage (C=512, n=8) at B=8 and
   B=128, its bundle made by the checkout's own ``pack_res_stage`` from one
   seeded quantized bundle;
 - ``tail``: ``tail_conv`` on the probe's draws at 64 and 512 crops;
+- ``resample``: ``window_resample`` on P21 and P22 (the probes' draws),
+  each held to the plain route bit for bit, with K1 (``roi_crop``) on
+  P22's 512 boxes timed beside it;
 - ``probes``: every probe on ``int8_contract`` or ``strided_map``, P16
   at 128× its rows included (at their full sizes, by the checkout's own
   ``probes.BY_NAME``), each with its library call
@@ -33,7 +44,7 @@ Each run prints one JSON line: per case device ms a call and launches a
 call (``chip_smoke.device_kernels``, ``torch.profiler``), call ms (CUDA
 events, the wrapper's Python included) and, for the probes, host µs a call
 (the least and the median of 9 windows of ``chip_smoke.host_us``:
-queued without a sync); for K5 and ``tail_conv``
+queued without a sync; also for ``resample``); for K5 and ``tail_conv``
 the CUDA-event ms of ``torch._int_mm`` on the same (M, K)·(K, N) products
 (a yardstick of the GEMMs alone, not of the function). Needs a CUDA card;
 compare runs of one call only.
@@ -46,7 +57,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-PARTS = ("k2", "k3", "k5", "tail", "probes")
+PARTS = ("k2", "k2bwd", "k3", "k5", "tail", "resample", "probes")
 
 CHILD = r"""
 import json, sys
@@ -71,6 +82,15 @@ def int_mm_ms(shapes, repeat=1, iters=10):
             for m, k, n in shapes]
     return cs.cuda_ms(lambda: [torch._int_mm(a, b) for _ in range(repeat) for a, b in mats],
                       iters)
+
+
+def host_us(fn):
+    # the least and the median of 9 windows of chip_smoke.host_us: the
+    # host's clock spreads ±40% between windows on a shared machine, and
+    # another process's work only ever adds to a window
+    import statistics
+    w = [cs.host_us(fn) for _ in range(9)]
+    return {"min": min(w), "median": statistics.median(w)}
 
 
 if "k2" in parts:
@@ -100,6 +120,38 @@ if "k2" in parts:
                 zt = np.random.default_rng(1).normal(0, 4, (m, 80, 80)).astype(np.float32)
                 out[f"K2 M={m} bf16 rounding, test draws"] = outside(
                     torch.from_numpy(zt).to(dev, torch.bfloat16))
+
+if "k2bwd" in parts:
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
+        _coord_rows, _torch_softargmax, _torch_softargmax_bwd, softargmax_bwd)
+
+    rng = np.random.default_rng(7)  # the smoke's draws (phase_k2_bwd)
+    z_all = torch.from_numpy(rng.normal(0, 3, (896, 80, 80)).astype(np.float32)).to(dev)
+    gpts_all = torch.from_numpy(rng.normal(0, 1, (896, 2)).astype(np.float32)).to(dev)
+    gpr_all = torch.from_numpy(rng.normal(0, 1e-2, (896, 80, 80)).astype(np.float32)).to(dev)
+    for m in (224, 896):
+        for dt in (torch.bfloat16, torch.float32):
+            probs = _torch_softargmax(z_all[:m].to(dt))[1]
+            g_pts = gpts_all[:m]
+            for g_probs in (None, gpr_all[:m].to(dt)):
+                fn = lambda: softargmax_bwd(probs, g_pts, g_probs)
+                got, ref = fn().float(), _torch_softargmax_bwd(probs, g_pts, g_probs).float()
+                d = (got - ref).abs()
+                rtol = 0.0 if dt == torch.float32 else 2 ** -7
+                ok = bool((d <= 1e-5 * ref.abs().max() + rtol * ref.abs()).all())
+                kernels, per_call, dev_ms = cs.device_kernels(fn, 20)
+                given = "given" if g_probs is not None else "None"
+                out[f"K2-bwd M={m} {str(dt)[6:]} g_probs {given}"] = {
+                    "device_ms": dev_ms, "launches_a_call": per_call, "call_ms": cs.cuda_ms(fn),
+                    "within_tol": ok, "max_abs_err": float(d.max())}
+            # the yardstick: the same reduction and elementwise pass on a
+            # gp computed beforehand, in the probabilities' dtype
+            xv, yv = _coord_rows(80, 80, dev)
+            gp = (g_pts[:, :1] * xv + g_pts[:, 1:] * yv).to(dt).reshape(probs.shape)
+            sb = lambda: torch._softmax_backward_data(gp, probs, 2, dt)
+            _, per_call, dev_ms = cs.device_kernels(sb, 20)
+            out[f"softmax_backward_data M={m} {str(dt)[6:]} (yardstick)"] = {
+                "device_ms": dev_ms, "launches_a_call": per_call, "call_ms": cs.cuda_ms(sb)}
 
 if "k3" in parts:
     from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import nms_topk
@@ -157,17 +209,30 @@ if "tail" in parts:
             "equal": equal, "int_mm_ms": int_mm_ms([(crops * 6400, 576, 128)])}
         del inp
 
-if "probes" in parts:
-    import statistics
+if "resample" in parts:
     from mit_driverless_cv_traininginfra_tpu_torch.probes import BY_NAME, KERNEL
+    from mit_driverless_cv_traininginfra_tpu_torch.probes.run import run_both
+    for name in ("P21", "P22"):
+        probe = BY_NAME[name]
+        inp = probe.build(dev)
+        res = run_both(probe, inp)
+        fn = lambda: probe.run(inp, KERNEL)
+        kernels, per_call, dev_ms = cs.device_kernels(fn, 10)
+        row = {"ok": res.ok, "launches": res.launches[probe.kernel], "device_ms": dev_ms,
+               "kernels_a_call": per_call, "device_kernels": sorted(set(kernels)),
+               "call_ms": cs.cuda_ms(fn, 20), "host_us": host_us(fn)}
+        row.update(cs.bound(*probe.work(inp, res.kernel_out)))
+        if probe.beside is not None:
+            label, make = probe.beside
+            k1 = make(inp)
+            _, k1_per_call, k1_dev = cs.device_kernels(k1, 10)
+            row["beside"] = {"label": label, "device_ms": k1_dev,
+                             "kernels_a_call": k1_per_call, "call_ms": cs.cuda_ms(k1, 20)}
+        out[name] = row
+        del inp, res
 
-    def host_us(fn):
-        # the least and the median of 9 windows of chip_smoke.host_us: the
-        # host's clock spreads ±40% between windows on a shared machine,
-        # and another process's work only ever adds to a window
-        w = [cs.host_us(fn) for _ in range(9)]
-        return {"min": min(w), "median": statistics.median(w)}
-
+if "probes" in parts:
+    from mit_driverless_cv_traininginfra_tpu_torch.probes import BY_NAME, KERNEL
     from mit_driverless_cv_traininginfra_tpu_torch.probes.mosaic import DP4A
     from mit_driverless_cv_traininginfra_tpu_torch.probes.run import run_both
     table = {**BY_NAME, DP4A.name: DP4A}

@@ -497,21 +497,39 @@ def test_res_stage_rejects_bad_bundles(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_g_probs", [True, False])
-def test_softargmax_bwd_matches_plain(cuda, dtype, with_g_probs):
+@pytest.mark.parametrize("shape,offset", [((21, 80, 80), 0), ((224, 80, 80), 0),
+                                          ((896, 80, 80), 0), ((0, 80, 80), 0),
+                                          ((5, 13, 17), 0), ((3, 1, 7), 0), ((4, 8, 17), 0),
+                                          ((2, 100, 100), 0), ((6, 80, 80), 1)])
+def test_softargmax_bwd_matches_plain(cuda, shape, offset, dtype, with_g_probs):
     """K2's backward against ``_torch_softargmax_bwd``: the row sum is taken
     in another order (1e-5 of the row's largest |dz|), bf16 also rounds the
-    result (one bf16 ulp)."""
+    result (one bf16 ulp). At the training batch (224 rows, B=32) and at
+    B=128 (896), at M = 0, on rows that are not a multiple of the vector
+    (13×17, 1×7), on vectors that cross a map row (8×17), on rows longer
+    than the block's registers (100×100), and on rows whose base is not on
+    16 bytes (``offset`` elements into a buffer); one kernel launch a call,
+    none at M = 0."""
+    m = shape[0]
     rng = np.random.default_rng(10)
-    z = torch.from_numpy(rng.normal(0, 3, (21, 80, 80)).astype(np.float32)).to(cuda, dtype)
+    z = torch.from_numpy(rng.normal(0, 3, shape).astype(np.float32)).to(cuda, dtype)
     _, probs = _torch_softargmax(z)
-    g_pts = torch.from_numpy(rng.normal(0, 1, (21, 2)).astype(np.float32)).to(cuda)
-    g_probs = (torch.from_numpy(rng.normal(0, 1e-2, (21, 80, 80)).astype(np.float32))
+    g_pts = torch.from_numpy(rng.normal(0, 1, (m, 2)).astype(np.float32)).to(cuda)
+    g_probs = (torch.from_numpy(rng.normal(0, 1e-2, shape).astype(np.float32))
                .to(cuda, dtype) if with_g_probs else None)
+    if offset:  # the same values at a base `offset` elements past 16 bytes
+        buf = torch.empty(probs.numel() + offset, dtype=dtype, device=cuda)
+        buf[offset:] = probs.reshape(-1)
+        probs = buf[offset:].view(shape)
+    before = softargmax_bwd.launches
     got = softargmax_bwd(probs, g_pts, g_probs)
     ref = _torch_softargmax_bwd(probs, g_pts, g_probs)
-    rtol = 0.0 if dtype == torch.float32 else 2 ** -7
-    d = (got.float() - ref.float()).abs()
-    assert bool((d <= 1e-5 * ref.float().abs().max() + rtol * ref.float().abs()).all())
+    assert softargmax_bwd.launches == before + (1 if m else 0)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if m:
+        rtol = 0.0 if dtype == torch.float32 else 2 ** -7
+        d = (got.float() - ref.float()).abs()
+        assert bool((d <= 1e-5 * ref.float().abs().max() + rtol * ref.float().abs()).all())
 
 
 def test_softargmax_autograd_launches_both_kernels(cuda):
@@ -933,25 +951,70 @@ def test_strided_map_windows_with_index_bases(cuda):
                            want.view(torch.int16))
 
 
-def test_window_resample_matches_plain_at_the_edges(cuda):
+@pytest.mark.parametrize("ch", [1, 3, 4])
+@pytest.mark.parametrize("base", [0, 1, 5])
+def test_window_resample_matches_plain_at_the_edges(cuda, ch, base):
     """Columns at the window's first and last tap, between taps, outside
-    it and NaN: bit for bit."""
+    it, ±inf and NaN, and a crop whose taps all lie outside: bit for bit.
+    Rows of 90 lanes (none but the first on 16 bytes) of frames whose base
+    lies ``base`` elements past 16 bytes, odd lane origins, 50 rows (not a
+    multiple of a block's band), 20 columns of 1, 3 or 4 channels (the
+    output rows' runs off 16 bytes but for 4)."""
     from mit_driverless_cv_traininginfra_tpu_torch.ops.window_resample import (
         window_resample,
         window_resample_plain,
     )
 
     g = torch.Generator(device=cuda).manual_seed(5)
-    frames = torch.rand((3, 120, 90), generator=g, device=cuda).to(torch.bfloat16)
-    fidx = torch.tensor([2, 0, 1, 2], device=cuda)
-    r0 = torch.tensor([0, 17, 40, 33], device=cuda)
-    l0 = torch.tensor([0, 3, 11, 30], device=cuda)
-    sx = torch.rand((4, 20), generator=g, device=cuda) * 24 - 2
-    sx[0, :6] = torch.tensor([0.0, 19.0, 19.5, -0.5, -3.0, float("nan")])
-    got = window_resample(frames, fidx, r0, l0, sx, rows=50, win_w=20, ch=3)
-    want = window_resample_plain(frames, fidx, r0, l0, sx, rows=50, win_w=20, ch=3)
-    assert got.shape == (4, 50, 60)
+    buf = torch.rand((3 * 120 * 90 + base,), generator=g, device=cuda).to(torch.bfloat16)
+    frames = buf[base:].view(3, 120, 90)
+    win_w = 20 if ch < 4 else 15
+    fidx = torch.tensor([2, 0, 1, 2, 1], device=cuda)
+    r0 = torch.tensor([0, 17, 40, 33, 70], device=cuda)
+    l0 = torch.tensor([0, 3, 11, 90 - win_w * ch, 7], device=cuda)
+    sx = torch.rand((5, 20), generator=g, device=cuda) * (win_w + 4) - 2
+    sx[0, :8] = torch.tensor([0.0, win_w - 1.0, win_w - 0.5, -0.5, -3.0, float("nan"),
+                              float("inf"), -float("inf")])
+    sx[4] = -5.0  # no tap in the window
+    got = window_resample(frames, fidx, r0, l0, sx, rows=50, win_w=win_w, ch=ch)
+    want = window_resample_plain(frames, fidx, r0, l0, sx, rows=50, win_w=win_w, ch=ch)
+    assert got.shape == (5, 50, 20 * ch)
     _assert_same_bits(got, want)
+
+
+def test_window_resample_bit_for_bit_at_p22(cuda):
+    """P22's 512 crops of 80 rows × 240 lanes from the probe's own draws,
+    bit for bit, one wrapper launch a call."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.window_resample import (
+        window_resample,
+        window_resample_plain,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.probes.crop import crop_kernel_arrays
+
+    d = crop_kernel_arrays(cuda)
+    args = (d["frames"], d["fidx2"], d["r02"], d["l02"], d["sx2"], 80, 256, 3)
+    before = window_resample.launches
+    got = window_resample(*args)
+    assert window_resample.launches == before + 1
+    _assert_same_bits(got, window_resample_plain(*args))
+
+
+def test_window_resample_wide_window_bit_for_bit(cuda):
+    """A 3000-column window, whose staged band rows need more than the 48
+    KB of shared memory a launch gets unasked: bit for bit."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.window_resample import (
+        window_resample,
+        window_resample_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    frames = torch.rand((2, 12, 3100), generator=g, device=cuda).to(torch.bfloat16)
+    fidx, r0 = torch.tensor([1, 0], device=cuda), torch.tensor([2, 0], device=cuda)
+    l0 = torch.tensor([33, 100], device=cuda)
+    sx = torch.rand((2, 70), generator=g, device=cuda) * 3000
+    got = window_resample(frames, fidx, r0, l0, sx, rows=10, win_w=3000, ch=1)
+    _assert_same_bits(got, window_resample_plain(frames, fidx, r0, l0, sx, rows=10,
+                                                 win_w=3000, ch=1))
 
 
 # Each script first runs its kernel on windows inside the input, then on

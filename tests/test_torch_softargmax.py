@@ -174,3 +174,123 @@ def test_soft_argmax_2d_bf16_gradient_flows_in_bf16():
     pts, probs = soft_argmax_2d(z)
     pts.float().sum().backward()
     assert z.grad.dtype == torch.bfloat16 and torch.isfinite(z.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# K2's backward on the card (csrc/softargmax.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+
+
+def _f32(x):
+    return np.asarray(x, np.float32)
+
+
+def _bwd_model(p, g_pts, g_probs, h, w, itemsize, aligned=True):
+    """``softargmax_bwd_kernel``'s arithmetic in its order, f32: one block
+    per row; thread t holds the 16-byte vectors j ≡ t (mod blockDim) (V =
+    16 / itemsize values each; ``kBwdVecs`` of them in registers, the rest
+    read again); gp from the w-entry xs and h-entry ys tables, element i of
+    vector j at column c and row r stepped from ((j·V) % w, (j·V) // w);
+    the f32 products gp·p summed in f64 per vector in element order, then
+    over the thread's vectors in increasing j, then the warp's xor
+    shuffles, then the same xor shuffles over the warps' partials (0 past
+    the last warp), and rounded to f32 once;
+    dz = p·(gp − s). Returns dz (M, h·w) in f32."""
+    m, hw = p.shape
+    V, NV = 16 // itemsize, 2 if itemsize == 2 else 4  # softargmax.cu: kBwdVecs
+    nvec = -(-hw // V)
+    nt = min(1024, -(-(-(-nvec // NV)) // 32) * 32)
+    vec = hw % V == 0 and aligned
+    in_row = vec and w % V == 0
+    xs, ys = (t.numpy() for t in _coord_tables(h, w))
+    # the lookups of each vector's elements, stepped as the kernel does
+    j = np.arange(nvec)
+    r, c = (j * V) // w, (j * V) % w
+    cols, rws = np.zeros((nvec, V), np.int64), np.zeros((nvec, V), np.int64)
+    for q in range(V):
+        cols[:, q], rws[:, q] = c, r
+        c = c + 1
+        r = np.where(c == w, r + 1, r)
+        c = np.where(c == w, 0, c)
+    i = j[:, None] * V + np.arange(V)
+    valid = i < hw
+    np.testing.assert_array_equal(cols[valid], i[valid] % w)
+    np.testing.assert_array_equal(rws[valid], i[valid] // w)
+    if in_row:  # each vector inside one map row, its xs 16-byte aligned
+        assert (cols[:, 0] % V == 0).all() and (rws == rws[:, :1]).all()
+    pad = nvec * V - hw
+    pv = np.pad(_f32(p), ((0, 0), (0, pad))).reshape(m, nvec, V)
+    gx, gy = _f32(g_pts[:, 0])[:, None, None], _f32(g_pts[:, 1])[:, None, None]
+    cl, rl = np.where(valid, cols, 0), np.where(valid, rws, 0)
+    up = _f32(_f32(gx * xs[cl]) + _f32(gy * ys[rl]))
+    if g_probs is not None:
+        up = _f32(np.pad(_f32(g_probs), ((0, 0), (0, pad))).reshape(m, nvec, V) + up)
+    gp = np.where(valid, up, np.float32(0))
+    prod = _f32(gp * pv).astype(np.float64)  # the f32 products, summed in f64
+    sv = np.zeros((m, nvec))
+    for q in range(V):
+        sv = sv + prod[:, :, q]
+    per_thread = np.zeros((m, nt))
+    for a in range(-(-nvec // nt)):
+        part = sv[:, a * nt:(a + 1) * nt]
+        per_thread[:, :part.shape[1]] = per_thread[:, :part.shape[1]] + part
+    lanes = per_thread.reshape(m, nt // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, :, np.arange(32) ^ o]
+    warps = np.zeros((m, 32))  # lane a: warp a's partial, 0 past the last warp
+    warps[:, :nt // 32] = lanes[:, :, 0]
+    for o in (16, 8, 4, 2, 1):
+        warps = warps + warps[:, np.arange(32) ^ o]
+    s = warps[:, :1, None]
+    dz = _f32(pv * _f32(gp - _f32(s)))
+    return dz.reshape(m, nvec * V)[:, :hw]
+
+
+@pytest.mark.parametrize("h,w", [(80, 80), (13, 17), (1, 7)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_g_probs", [True, False])
+def test_backward_kernel_model_matches_jax_bwd(h, w, dtype, with_g_probs):
+    """The card kernel's schedule (``_bwd_model``) against the JAX
+    package's ``_bwd`` on the same saved probabilities, within the plain
+    version's tolerance: 1e-5 of the row's largest |dz| (the row sum in
+    another order), one bf16 ulp in bf16; and against the plain version."""
+    rng = np.random.default_rng(16)
+    m = 9
+    z = rng.normal(0, 3, (m, h, w)).astype(np.float32)
+    _, jprobs = _xla_softargmax(jnp.asarray(z).astype(dtype))
+    g_pts = rng.normal(0, 1, (m, 2)).astype(np.float32)
+    g_probs = jnp.asarray(rng.normal(0, 1e-2, (m, h, w)).astype(np.float32)).astype(dtype)
+    jg = g_probs if with_g_probs else jnp.zeros_like(g_probs)
+    (want,) = _bwd((jprobs,), (jnp.asarray(g_pts), jg))
+    want = np.asarray(want, np.float32)
+    p = np.array(jprobs, np.float32).reshape(m, h * w)
+    gpr = np.array(g_probs, np.float32).reshape(m, h * w) if with_g_probs else None
+    dz = _bwd_model(p, g_pts, gpr, h, w, 2 if dtype == "bfloat16" else 4)
+    got = torch.from_numpy(dz.reshape(m, h, w)).to(getattr(torch, dtype)).float().numpy()
+    rtol = 0.0 if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-5 * np.abs(want).max())
+    tdt = getattr(torch, dtype)
+    plain = _torch_softargmax_bwd(
+        torch.from_numpy(p.reshape(m, h, w)).to(tdt), torch.from_numpy(g_pts),
+        torch.from_numpy(gpr.reshape(m, h, w)).to(tdt) if with_g_probs else None)
+    plain = plain.float().numpy()
+    np.testing.assert_allclose(got, plain, rtol=rtol, atol=1e-5 * np.abs(plain).max())
+
+
+@pytest.mark.parametrize("h,w,itemsize,aligned", [(100, 100, 2, True), (8, 17, 2, True),
+                                                  (80, 80, 4, False), (1, 7, 4, True)])
+def test_backward_kernel_model_paths_match_plain(h, w, itemsize, aligned):
+    """The model's other paths against the plain version in f32: a row
+    longer than the block's registers (100×100: vectors read again), vectors
+    that cross a map row (8×17), an unaligned base (element by element),
+    a row shorter than one vector (1×7)."""
+    rng = np.random.default_rng(17)
+    m = 4
+    z = torch.from_numpy(rng.normal(0, 3, (m, h, w)).astype(np.float32))
+    _, probs = _torch_softargmax(z)
+    g_pts = rng.normal(0, 1, (m, 2)).astype(np.float32)
+    gpr = rng.normal(0, 1e-2, (m, h * w)).astype(np.float32)
+    dz = _bwd_model(probs.reshape(m, -1).numpy(), g_pts, gpr, h, w, itemsize, aligned)
+    ref = _torch_softargmax_bwd(probs, torch.from_numpy(g_pts),
+                                torch.from_numpy(gpr.reshape(m, h, w))).reshape(m, -1).numpy()
+    np.testing.assert_allclose(dz, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
