@@ -25,16 +25,17 @@ hand-written CUDA kernels:
    microseconds of a call;
 4. bf16 slice: the f32 pipeline on the card against the same port on CPU
    copies (plain path), then a bf16 ``TwoStageServer`` that warms up and
-   answers requests — one of them a short batch that pads — while K1-K3's
-   launch counters must grow;
+   answers requests — one of them a short batch that pads —, once by CUDA
+   graph replay (``torch.profiler`` must name K1-K3 once a replay) and
+   once eagerly (K1-K3's launch counters must grow by one a request);
 5. int8: the int8 models are calibrated and quantized on the card; K4
    (fused entry block) against its plain version at the main path's
    (8, 208, 208, 128), bit for bit, with its registers, the integer
    tensor-core instructions of its SASS (``cuobjdump``; none fails),
    kernels a call, device time and timings; the
    int8 pipeline on the card against CPU copies (K4's output bit-equal,
-   masks equal); then an int8 ``TwoStageServer`` whose K1-K4 launch
-   counters must all grow, with frames/s beside the bf16 server's;
+   masks equal); then an int8 ``TwoStageServer``, graphed and eager as
+   in 4, for K1-K4, with frames/s beside the bf16 server's;
 6. K5: the int8 forward of the served frames up to the 26² stage (S=26,
    C=512, n=8, B=8), then K5 against its plain version, every int8 and
    bf16 equal, borders included; again at S=13 with ±127 at the borders;
@@ -74,7 +75,7 @@ Prints one JSON line of per-kernel results before the last line, which is
 its own path's run (counters set to 0 just before it; the K1-K5, K2
 backward and ``tail_conv`` rows also carry ``device_ms`` and
 ``kernels_per_call``): K1-K4 over the
-int8 server's requests, K5 over its stage path, the four probe kernels
+eager int8 server's requests (a replay calls no wrapper), K5 over its stage path, the four probe kernels
 over the probe path, K2's backward over the training steps. ``bound_ms``
 is the larger of the row's bytes over 3.35 TB/s and its operations over
 the card's peak for their type. Any failure
@@ -636,12 +637,12 @@ def kernel_wrappers() -> dict:
             "nms_topk": nms_topk, "entry_block": fused_entry_block}
 
 
-def serve(label: str, yolo, rekt, frames, thresh, smi, n_full: int = 63):
-    """A ``TwoStageServer`` at B=8 that warms buckets of 16 up to 112 (<
-    B·max_det = 128, so every bucket runs the compacted path), then answers
-    a short batch of 6 that pads and ``n_full`` full batches. Every kernel
-    counter is set to 0 just before the requests and read just after.
-    Returns ``(launches, frames/s)``."""
+SERVE_CAPS = [64, 80, 96, 112]  # < B·max_det = 128: every bucket compacts
+PATH_KERNELS = {"bf16": ("roi_crop", "softargmax", "nms_topk"),
+                "int8": ("roi_crop", "softargmax", "nms_topk", "entry_block")}
+
+
+def make_server(yolo, rekt, thresh, graphs: bool = True, **kw):
     from mit_driverless_cv_traininginfra_tpu_torch.infer.capacity import (
         AdaptiveCapacity,
     )
@@ -649,11 +650,30 @@ def serve(label: str, yolo, rekt, frames, thresh, smi, n_full: int = 63):
         TwoStageServer,
     )
 
-    policy = AdaptiveCapacity(floor=64, quantum=16,
-                                                 warmup_capacity=96)
-    server = TwoStageServer(yolo, rekt, conf_thresh=thresh, max_det=MAX_DET,
-                            policy=policy)
-    server.warmup([B_SERVE], capacities=[64, 80, 96, 112])
+    kw.setdefault("policy", AdaptiveCapacity(floor=64, quantum=16, warmup_capacity=96))
+    return TwoStageServer(yolo, rekt, conf_thresh=thresh, max_det=MAX_DET,
+                          cuda_graphs=graphs, **kw)
+
+
+def serve(label: str, yolo, rekt, frames, thresh, smi, n_full: int = 63,
+          graphs: bool = True, n_profiled: int = 16):
+    """A ``TwoStageServer`` at B=8 that warms buckets of 64 up to 112 for
+    frames of ``frames.dtype`` (captured as CUDA graphs, or run eagerly
+    with ``graphs=False``), then answers a short batch of 6 that pads and
+    ``n_full`` full batches. Served eagerly, the wrappers launch: every
+    kernel counter is set to 0 just before the requests and read just
+    after, and each kernel of the path must have launched once a request.
+    By replay no wrapper runs: ``n_profiled`` more requests are served
+    under ``torch.profiler``, and each kernel of the path must be named in
+    its record once a replay. Returns ``(launches, frames/s, server)``:
+    the wrappers' counts, or the profiler's counts over the replays."""
+    server = make_server(yolo, rekt, thresh, graphs)
+    path = PATH_KERNELS[label]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # a capture empties the cache: count from empty
+    reserved = torch.cuda.memory_reserved()
+    warm_s = server.warmup([B_SERVE], capacities=SERVE_CAPS, frame_dtype=frames.dtype)
+    reserved = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
@@ -664,6 +684,8 @@ def serve(label: str, yolo, rekt, frames, thresh, smi, n_full: int = 63):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    want = {k: (0 if graphs or k not in path else len(outs)) for k in wrappers}
+    check(launches == want, f"{label} serve: wrapper counts {launches}, expected {want}")
     n_frames = 6 + n_full * B_SERVE
     check(outs[0].mask.shape[0] == 6, "short batch was not sliced back")
     kept = 0
@@ -675,13 +697,108 @@ def serve(label: str, yolo, rekt, frames, thresh, smi, n_full: int = 63):
               f"{label} serve: non-finite output on a kept slot")
     stats = server.stats()
     fps = n_frames / wall
-    log(f"serve {label} stats: {json.dumps(stats, default=str)}")
-    log(f"serve {label}: {len(outs)} requests, {n_frames} frames in {wall!r} s "
-        f"= {fps!r} frames/s, kept detections {kept}, "
-        f"launches {launches} on {smi}")
+    mode = "graphed" if graphs else "eager"
+    log(f"serve {label} {mode} stats: {json.dumps(stats, default=str)}")
+    log(f"serve {label} {mode}: {len(outs)} requests, {n_frames} frames in {wall!r} s "
+        f"= {fps!r} frames/s, kept detections {kept}, launches {launches}; warmup "
+        f"{warm_s!r} s, {len(server.warmed)} buckets, {reserved!r} MiB reserved by it, "
+        f"on {smi}")
     check(kept > 0, f"{label} serve: no detection kept")
     check(stats["batch_pads"] >= 1, f"{label} serve: the short batch did not pad")
-    return launches, fps
+    check(stats["compiles"] == 0, f"{label} serve: a bucket ran that warmup did not build")
+    check(stats["replays"] == (len(outs) if graphs else 0) and
+          stats["graphs"] == (len(SERVE_CAPS) if graphs else 0),
+          f"{label} serve: {stats['replays']} replays of {stats['graphs']} graphs")
+    if graphs:
+        launches = profiled_launches(label, server, frames, n_profiled)
+    return launches, fps, server
+
+
+def bits_equal(a, b) -> bool:
+    if a.dtype == torch.bool or a.dtype == torch.int8:
+        return torch.equal(a, b)
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def phase_graphs(label: str, server, yolo, rekt, frames_np) -> None:
+    """Every warmed bucket's graph, for both feeds (uint8 and the detector's
+    frame dtype) and a full and a short batch: the replay bit-equal to
+    ``two_stage_pipeline`` run eagerly on the same (zero-padded) frames,
+    and no wrapper's counter moved by the replay (it calls none). Then
+    replayed requests under ``torch.profiler`` name each path kernel once
+    a replay."""
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
+        two_stage_pipeline,
+    )
+
+    dev = yolo.device
+    feeds = {"uint8": torch.from_numpy((frames_np * 255).astype(np.uint8)).to(dev),
+             str(yolo.frame_dtype)[6:]: torch.from_numpy(frames_np).to(dev, yolo.frame_dtype)}
+    server.warmup([B_SERVE], capacities=SERVE_CAPS, frame_dtype=torch.uint8)
+    wrappers = kernel_wrappers()
+    path = PATH_KERNELS[label]
+    n_checked = 0
+    for feed, frames in feeds.items():
+        for B, cap in sorted(server.warmed):
+            for B0 in (B, 6):
+                before = {k: fn.launches for k, fn in wrappers.items()}
+                out = server._dispatch(frames[:B0], B, cap)
+                grown = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+                pad = frames.new_zeros((B - B0, *frames.shape[1:]))
+                ref = two_stage_pipeline(yolo, rekt, torch.cat([frames[:B0], pad]),
+                                         conf_thresh=server.conf_thresh,
+                                         max_det=MAX_DET, crop_capacity=cap)
+                torch.cuda.synchronize()
+                same = all(bits_equal(a[:B0], b[:B0]) for a, b in zip(out, ref))
+                check(same, f"{label} graph ({B}, {cap}) {feed} B0={B0}: replay "
+                            "differs from the eager pipeline")
+                check(not any(grown.values()),
+                      f"{label} graph ({B}, {cap}) {feed}: a replay moved counters {grown}")
+                n_checked += 1
+    log(f"graphs {label}: {n_checked} replays ({len(server.warmed)} buckets × "
+        f"{list(feeds)} × B0 8 and 6) bit-equal to the eager pipeline, no wrapper "
+        f"counter moved; {server.stats()['graphs']} graphs captured")
+    profiled_launches(label, server, feeds["uint8"], 2)
+
+
+def profiled_launches(label: str, server, frames, n: int) -> dict:
+    """Serve ``n`` requests of ``frames`` under ``torch.profiler`` and count,
+    by name, the device launches of each kernel of ``label``'s path in its
+    record; each must equal the replays those requests ran. Retaken up to
+    three times (CUPTI's records come back short now and then). Returns
+    the counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = PATH_KERNELS[label]
+    server(frames)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        replays = server.replays
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                server(frames)
+            torch.cuda.synchronize()
+        replays = server.replays - replays
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {k: sum(k in name for name in names) for k in path}
+        if all(c == replays for c in counts.values()):
+            break
+    log(f"graphs {label}: {n} requests ({replays} replays) under torch.profiler: "
+        f"{len(names)} device activities, path kernels by name {counts}")
+    check(replays == n and all(c == n for c in counts.values()),
+          f"{label}: {replays} replays, path kernels recorded {counts}")
+    return counts
+
+
+def phase_latency(label: str, server, frames, smi) -> dict:
+    """``measure_latency``: 100 fenced requests at B=8 after 3 warm runs."""
+    st = server.measure_latency(frames, n=100, warm=3)
+    log(f"measure_latency {label} B={B_SERVE}: {st['latency_samples']} fenced samples, "
+        f"batch ms {st['latency_batch_ms']}, frame ms {st['latency_frame_ms']} on {smi}")
+    check(st["latency_samples"] >= 100, f"{label}: fewer than 100 fenced samples")
+    return st
 
 
 def phase_serve_bf16(dev, frames_np, thresh, smi):
@@ -690,12 +807,11 @@ def phase_serve_bf16(dev, frames_np, thresh, smi):
     yolo.to(memory_format=torch.channels_last)
     rekt.to(memory_format=torch.channels_last)
     frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
-    launches, fps = serve("bf16", yolo, rekt, frames, thresh, smi)
-    path = ("roi_crop", "softargmax", "nms_topk")
-    check(all(launches[k] > 0 for k in path),
-          f"a kernel of the bf16 path never launched while serving: {launches}")
-    check(launches["entry_block"] == 0, "the bf16 path launched K4")
-    return fps
+    _, fps, server = serve("bf16", yolo, rekt, frames, thresh, smi)
+    _, fps_eager, _ = serve("bf16", yolo, rekt, frames, thresh, smi, graphs=False)
+    phase_graphs("bf16", server, yolo, rekt, frames_np)
+    phase_latency("bf16", server, frames, smi)
+    return fps, fps_eager
 
 
 # ---------------------------------------------------------------------------
@@ -708,7 +824,8 @@ SLOPE = 0.1  # YOLOv3's leaky slope (flagship_spec)
 def quantize_on_card(dev, frames_np):
     """Calibrate and quantize the seeded models as bench.py does: the f32
     folded Darknet on the 8 frames, RektNet on 32 synthetic cone crops.
-    Returns ``(spec, yolo_q, entry_q, rekt_q)``, tensors on ``dev``."""
+    Returns ``(spec, yolo_q, entry_q, rekt_q, amax)``, tensors on ``dev``;
+    ``amax``: the two calibrations, ``{"yolo", "rekt"}``."""
     from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
     from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
     from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
@@ -720,7 +837,8 @@ def quantize_on_card(dev, frames_np):
     ramax = quantize.calibrate_rektnet(rfolded, np.asarray(crops, np.float32))
     return (spec1, quantize.quantize_params(spec1, folded1, amax),
             entry.quantize_entry(folded1, amax),
-            quantize.quantize_rektnet_params(rfolded, ramax))
+            quantize.quantize_rektnet_params(rfolded, ramax),
+            {"yolo": amax, "rekt": ramax})
 
 
 def tree_to(tree, dev):
@@ -732,7 +850,7 @@ def tree_to(tree, dev):
 def int8_models(bundles, dev):
     from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
 
-    spec1, yolo_q, entry_q, rekt_q = bundles
+    spec1, yolo_q, entry_q, rekt_q = bundles[:4]
     yolo = quantize.Int8Darknet(spec1, yolo_q, entry_q).to(dev)
     return yolo.eval(), quantize.Int8RektNet(rekt_q).to(dev).eval()
 
@@ -815,7 +933,7 @@ def phase_slice_int8(dev, frames_np, bundles):
     from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
 
     yolo, rekt = int8_models(bundles, dev)
-    cpu = (bundles[0], *(tree_to(b, "cpu") for b in bundles[1:]))
+    cpu = (bundles[0], *(tree_to(b, "cpu") for b in bundles[1:4]))
     yolo_c, rekt_c = int8_models(cpu, "cpu")
     frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
     with torch.inference_mode():
@@ -859,10 +977,199 @@ def phase_slice_int8(dev, frames_np, bundles):
 
 def phase_serve_int8(yolo, rekt, frames_np, thresh, smi):
     frames = torch.from_numpy(frames_np).to(yolo.device, torch.bfloat16)
-    launches, fps = serve("int8", yolo, rekt, frames, thresh, smi)
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the int8 path never launched while serving: {launches}")
-    return launches, fps
+    _, fps, server = serve("int8", yolo, rekt, frames, thresh, smi)
+    # the kernels line takes the launches of the run in which the wrappers
+    # launch: the eager serve
+    launches, fps_eager, _ = serve("int8", yolo, rekt, frames, thresh, smi,
+                                   graphs=False)
+    phase_graphs("int8", server, yolo, rekt, frames_np)
+    phase_latency("int8", server, frames, smi)
+    return launches, fps, fps_eager
+
+
+def phase_repairs(dev, frames_np, bundles) -> None:
+    """The card's quantized bundle against one quantized on the CPU from the
+    same amax (the weight scales are IEEE quotients on both), and the
+    card's uint8 normalise against the CPU's, all bit for bit."""
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import normalize_u8
+    from mit_driverless_cv_traininginfra_tpu_torch.models import quantize
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
+
+    # the card's own folded weights, so that only the quantization differs
+    spec1, folded1, rfolded = seeded_folded(dev)
+    folded1, rfolded = tree_to(folded1, "cpu"), tree_to(rfolded, "cpu")
+    amax = bundles[4]
+    cpu = (quantize.quantize_params(spec1, folded1, amax["yolo"]),
+           entry.quantize_entry(folded1, amax["yolo"]),
+           quantize.quantize_rektnet_params(rfolded, amax["rekt"]))
+    n_leaves = 0
+    for name, card, ref in zip(("quantize_params", "quantize_entry",
+                                "quantize_rektnet_params"), bundles[1:4], cpu):
+        leaves = list(tree_pairs(card, ref))
+        n_leaves += len(leaves)
+        bad = [k for k, a, b in leaves
+               if a.dtype != b.dtype or not torch.equal(a.cpu().reshape(-1).view(torch.uint8),
+                                                        b.reshape(-1).view(torch.uint8))]
+        check(not bad, f"{name} on the card differs from the CPU's at {bad[:5]}")
+    u8 = torch.arange(256, dtype=torch.uint8)
+    same_norm = bits_equal(normalize_u8(u8.to(dev)).cpu(), normalize_u8(u8))
+    log(f"repairs: {n_leaves} quantized leaves quantized on the card bit-equal to the "
+        f"CPU's from the same amax; uint8 normalise card vs CPU bit-equal {same_norm}")
+    check(same_norm, "the card's uint8 normalise differs from the CPU's")
+
+
+def tree_pairs(a, b, path=""):
+    """``(path, leaf of a, leaf of b)`` over two trees of the same keys."""
+    check(a.keys() == b.keys(), f"trees differ in keys at {path}")
+    for k in a:
+        if isinstance(a[k], dict):
+            yield from tree_pairs(a[k], b[k], f"{path}/{k}")
+        else:
+            yield f"{path}/{k}", a[k], b[k]
+
+
+def phase_microbatch(yolo, rekt, frames_np, thresh, smi) -> None:
+    """Two threads submit single uint8 frames to a ``MicroBatcher`` over an
+    int8 server warmed at B=1 and 2 (dense capacity, so a frame's result
+    does not hang on its batch). Every future's result against the
+    server's direct B=1 call on that frame: masks, boxes and scores
+    bit-equal (the detector is integer and f64-summed), keypoints within
+    1e-3 px (RektNet's f32 head sums in another order at another batch)."""
+    import threading
+
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.capacity import (
+        AdaptiveCapacity,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.microbatch import MicroBatcher
+
+    u8 = (frames_np * 255).astype(np.uint8)
+    server = make_server(yolo, rekt, thresh,
+                         policy=AdaptiveCapacity(floor=16, quantum=16, warmup_capacity=32))
+    server.warmup([1, 2], capacities=[32], frame_dtype=torch.uint8)
+    results = {}
+
+    def client(c: int, mb):
+        for i in range(c, 32, 2):
+            results[i] = mb.submit(u8[i % B_SERVE]).result(timeout=120)
+
+    with MicroBatcher(server, bucket_sizes=(1, 2), max_wait_ms=2.0) as mb:
+        threads = [threading.Thread(target=client, args=(c, mb)) for c in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads), "a MicroBatcher client hung")
+        st = mb.stats()
+    check(len(results) == 32, f"{len(results)} of 32 futures resolved")
+    direct = {}
+    for i in range(B_SERVE):
+        out = server(u8[i:i + 1])
+        direct[i] = [x[0].cpu().numpy() for x in out]
+    kpt_err = 0.0
+    for i, r in results.items():
+        boxes, scores, mask, kpts = direct[i % B_SERVE]
+        check(np.array_equal(r["mask"], mask) and np.array_equal(r["boxes"], boxes)
+              and np.array_equal(r["scores"], scores),
+              f"MicroBatcher frame {i}: detections differ from the direct call")
+        kpt_err = max(kpt_err, float(np.abs(r["keypoints"] - kpts).max()))
+    log(f"microbatch: 32 frames from 2 threads, {st['batches']} batches "
+        f"{st['bucket_histogram']}, request_ms {st['request_ms']}, detections "
+        f"bit-equal to direct calls, keypoints max |d| {kpt_err!r} px on {smi}")
+    check(kpt_err <= 1e-3, f"MicroBatcher keypoints {kpt_err} px off the direct call")
+
+
+def phase_detect(dev, smi) -> None:
+    """``detect_image`` on a 720×1280 uint8 frame with the f32 detector, on
+    the card against the CPU: the kept detections equal in number and
+    order, boxes within 1e-2 px + 1e-4 relative (f32 convolutions summed
+    in other orders, as the f32 slice); then the plain ``nms`` on the
+    frame's 10647 candidates at ``top_k`` 200, timed on the card."""
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.detect import detect_image
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.image import letterbox
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.nms import batched_nms
+
+    yolo, _ = build_models(dev, torch.float32)
+    scene, _ = synthetic.yolo_batch(np.random.default_rng(7), 1, 1280)
+    img = (scene[0, :720] * 255).astype(np.uint8)
+    boxed, _ = letterbox(torch.from_numpy(img).to(dev).float()[None] / 255.0,
+                         SIZE, SIZE)
+    with torch.inference_mode():
+        dets = yolo.detections(boxed, with_classes=False)
+    thresh = pick_conf_thresh(dets, MAX_DET)
+    t0 = time.perf_counter()
+    got_b, got_s = detect_image(yolo, img, conf_thresh=thresh, nms_thresh=0.25)
+    card_s = time.perf_counter() - t0
+    ref_b, ref_s = detect_image(yolo.to("cpu"), img, conf_thresh=thresh, nms_thresh=0.25)
+    same_n = got_b.shape == ref_b.shape
+    err = (float(np.abs(got_b - ref_b).max()) if same_n and len(ref_b) else 0.0)
+    log(f"detect_image 720×1280 uint8, conf_thresh {thresh!r}: card {len(got_b)} "
+        f"detections in {card_s!r} s, CPU {len(ref_b)}; boxes max |d| {err!r} px")
+    check(same_n and len(ref_b) > 0, "detect_image: card and CPU keep different detections")
+    check(np.allclose(got_b, ref_b, rtol=1e-4, atol=1e-2)
+          and np.allclose(got_s, ref_s, rtol=1e-4, atol=1e-5),
+          "detect_image: card boxes or scores beyond rtol 1e-4, atol 1e-2 / 1e-5")
+    conf = dets[..., 4]
+    xy, wh = dets[..., 0:2], dets[..., 2:4] / 2
+    corner = torch.cat([xy - wh, xy + wh], dim=-1)
+    scores = torch.where(conf > thresh, conf, torch.full_like(conf, -torch.inf))
+    ms = cuda_ms(lambda: batched_nms(corner, scores, 0.25, 200), iters=10, warm=2)
+    log(f"nms (plain torch, not the served path) B=1 N={conf.shape[1]} top_k 200: "
+        f"{ms!r} ms a call on {smi}")
+
+
+def phase_cli(dev, frames_np, thresh_bf16, thresh_int8, smi) -> None:
+    """The serve CLI in-process on ``synthetic:64`` at int8 and bf16 and in
+    latency mode, on a full-size YOLOv3-416 ``.weights`` (80-class heads,
+    sliced to one class by the CLI) and a RektNet ``.pt`` that the port
+    writes to a temporary directory; each must exit 0 with
+    ``--assert_no_compiles`` and print its JSON summary."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mit_driverless_cv_traininginfra_tpu_torch import convert
+    from mit_driverless_cv_traininginfra_tpu_torch.cli import serve as cli
+    from mit_driverless_cv_traininginfra_tpu_torch.config.cfg_factory import yolov3_cfg
+    from mit_driverless_cv_traininginfra_tpu_torch.config.flagship import flagship_spec
+    from mit_driverless_cv_traininginfra_tpu_torch.models import darknet
+    from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import KeypointNet
+    from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import save_rektnet_pt
+
+    spec = flagship_spec(SIZE)
+    rng = np.random.default_rng(0)     # seeded_folded's draws
+    yp, ys = convert.init_darknet_np(spec, rng)
+    rp, rs = convert.init_rektnet_np(rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = f"{tmp}/yolov3-416.cfg"
+        with open(cfg, "w") as f:
+            f.write(yolov3_cfg(width=SIZE, height=SIZE, classes=80))
+        darknet.save_darknet_weights(spec, convert.from_jax(yp), convert.from_jax(ys),
+                                     f"{tmp}/yolov3.weights")
+        save_rektnet_pt(f"{tmp}/rektnet.pt", KeypointNet(convert.from_jax(rp),
+                                                         convert.from_jax(rs)))
+        common = ["--source", "synthetic:64", "--model_cfg", cfg, "--vanilla_anchor",
+                  "--yolo_weights", f"{tmp}/yolov3.weights",
+                  "--rektnet_weights", f"{tmp}/rektnet.pt", "--assert_no_compiles"]
+        runs = (("int8", ["--precision", "int8", "--conf_thres", repr(thresh_int8)]),
+                ("bf16", ["--precision", "bf16", "--conf_thres", repr(thresh_bf16)]),
+                ("bf16 latency", ["--precision", "bf16", "--conf_thres",
+                                  repr(thresh_bf16), "--latency_mode"]))
+        for label, extra in runs:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(common + extra)
+            summary = json.loads(out.getvalue().strip().splitlines()[-1])
+            keys = ("mode", "frames", "fps", "e2e_batch_ms", "request_frame_ms",
+                    "compiles", "calls", "graphs", "replays", "mean_load", "warmup_seconds")
+            log(f"cli {label}: rc {rc} in {time.perf_counter() - t0:.1f} s; "
+                + json.dumps({k: summary.get(k) for k in keys}) + f" on {smi}")
+            check(rc == 0 and summary["frames"] == 64 and summary["compiles"] == 0,
+                  f"cli {label}: rc {rc}, {summary['frames']} frames, "
+                  f"{summary['compiles']} compiles")
+            check(summary["replays"] == summary["calls"] > 0,
+                  f"cli {label}: {summary['replays']} replays of {summary['calls']} calls")
 
 
 # ---------------------------------------------------------------------------
@@ -1408,13 +1715,19 @@ def main() -> int:
 
     frames_np, _ = synthetic.yolo_batch(np.random.default_rng(42), B_SERVE, SIZE)
     thresh = phase_slice_f32(dev, frames_np)
-    fps_bf16 = phase_serve_bf16(dev, frames_np, thresh, smi)
+    fps_bf16, eager_bf16 = phase_serve_bf16(dev, frames_np, thresh, smi)
     bundles = quantize_on_card(dev, frames_np)
+    phase_repairs(dev, frames_np, bundles)
     phase_k4(dev, rows, bundles[2], frames_np)
     yolo_q, rekt_q, thresh_q = phase_slice_int8(dev, frames_np, bundles)
-    launches, fps_int8 = phase_serve_int8(yolo_q, rekt_q, frames_np, thresh_q, smi)
-    log(f"served frames/s at B={B_SERVE}: int8 {fps_int8!r}, bf16 {fps_bf16!r}, "
-        f"int8/bf16 {fps_int8 / fps_bf16!r} on {smi}")
+    launches, fps_int8, eager_int8 = phase_serve_int8(yolo_q, rekt_q, frames_np,
+                                                      thresh_q, smi)
+    log(f"served frames/s at B={B_SERVE}, graphed (eager): int8 {fps_int8!r} "
+        f"({eager_int8!r}), bf16 {fps_bf16!r} ({eager_bf16!r}); graphed/eager int8 "
+        f"{fps_int8 / eager_int8!r}, bf16 {fps_bf16 / eager_bf16!r} on {smi}")
+    phase_microbatch(yolo_q, rekt_q, frames_np, thresh_q, smi)
+    phase_detect(dev, smi)
+    phase_cli(dev, frames_np, thresh, thresh_q, smi)
     for name, n in launches.items():
         rows[name]["launches"] = n
     phase_k5(dev, rows, bundles, yolo_q, frames_np)

@@ -83,6 +83,14 @@ def _crops_and_keypoints(kpt_apply, frames, boxes, scores, mask,
     return pts.reshape(B, K, 7, 2), kept.reshape(B, K)
 
 
+def normalize_u8(frames):
+    """uint8 frames → f32 in [0, 1] as ``x · fl(1/255)``: bit-equal to the
+    JAX package's jitted ``u8.astype(f32) / 255.0``. A division by the
+    Python scalar would be the IEEE quotient on the CPU (1 ulp off for 126
+    of the 256 values) and the reciprocal product on the card."""
+    return frames.float() * (1.0 / 255.0)
+
+
 @torch.inference_mode()
 def two_stage_pipeline(yolo: YoloHeads, rekt, frames,
                        conf_thresh: float = 0.8, nms_thresh: float = 0.25,
@@ -93,11 +101,13 @@ def two_stage_pipeline(yolo: YoloHeads, rekt, frames,
     ``Int8Darknet``, ``rekt`` a ``RektNet`` or an ``Int8RektNet``.
 
     uint8 frames are the wire-efficient feed: normalised on the device in
-    f32 (/255) and cast to ``yolo.frame_dtype`` (bf16 for int8). Dropped
-    and invalid slots get all-zero keypoints (a detectable sentinel), not
-    the box corner."""
+    f32 and cast to ``yolo.frame_dtype`` (bf16 for int8). The normalise is
+    ``x · fl(1/255)``, which is what the JAX package's jitted ``/ 255``
+    compiles to (XLA folds a constant divisor into a reciprocal multiply),
+    on the CPU and on the card alike. Dropped and invalid slots get
+    all-zero keypoints (a detectable sentinel), not the box corner."""
     if frames.dtype == torch.uint8:
-        frames = (frames.float() / 255.0).to(yolo.frame_dtype)
+        frames = normalize_u8(frames).to(yolo.frame_dtype)
     dets = yolo(frames)  # (B, N, 5): the 1-class decode
     boxes, scores, mask = _postprocess(dets, conf_thresh, nms_thresh, max_det)
     pts, kept = _crops_and_keypoints(lambda c: rekt(c)[1], frames, boxes,

@@ -8,15 +8,18 @@ trees mirror the JAX package's with OIHW weights: ``{"<block index>":
 linear pre-yolo convs, plus a state tree of BN running ``{"mean",
 "var"}``. :func:`fold_bn` folds them; :class:`Darknet` runs the folded
 graph. Frames, activations and head outputs are NHWC; each convolution
-views its input as NCHW (channels_last).
+views its input as NCHW (channels_last). :func:`load_darknet_weights` and
+:func:`save_darknet_weights` read and write such trees as Darknet
+``.weights`` files (local paths).
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -52,6 +55,81 @@ def fold_bn(params, state, spec: NetworkSpec):
         else:
             folded[str(i)] = {"w": p["w"], "b": p["b"]}
     return folded
+
+
+def load_darknet_weights(spec: NetworkSpec, params, state, weights_path: str,
+                         start_weights_dim: Optional[Sequence[int]] = None):
+    """Read a Darknet ``.weights`` file into ``(params, state)`` trees of
+    ``spec`` (OIHW, as :func:`fold_bn` takes them; the given trees give
+    each conv's input width and are not changed). Returns ``(params,
+    state, header)``.
+
+    Per conv block, in file order: BN ``bias, scale, mean, var`` then the
+    OIHW weight; a pre-yolo conv: its bias, then its weight, where
+    ``start_weights_dim`` (default ``spec.net.start_weights_dim``) names
+    the filter count stored in the file for each head in turn, of which
+    the first ``filters`` are taken (an 80-class head warm-starts a
+    1-class one)."""
+    if start_weights_dim is None:
+        start_weights_dim = spec.net.start_weights_dim
+    with open(weights_path, "rb") as fp:
+        header = np.fromfile(fp, dtype=np.int32, count=5)
+        weights = np.fromfile(fp, dtype=np.float32)
+
+    ptr = 0
+
+    def take(shape, keep: Optional[int] = None):
+        """The next values of the file as an f32 tensor of ``shape``, cut
+        to its first ``keep`` rows."""
+        nonlocal ptr
+        n = int(np.prod(shape))
+        a = weights[ptr:ptr + n]
+        if a.size != n:
+            raise ValueError(f"{weights_path} ends after {weights.size} "
+                             "values, before every conv block is read")
+        ptr += n
+        return torch.from_numpy(a.reshape(shape)[:keep].copy()).to(dev)
+
+    params, state = dict(params), dict(state)
+    heads = 0
+    for i, b in enumerate(spec.blocks):
+        if not isinstance(b, ConvBlock):
+            continue
+        p = dict(params[str(i)])
+        cout, k, cin = b.filters, b.size, p["w"].shape[1]
+        dev = p["w"].device
+        if b.batch_normalize:
+            p["bn"] = {"bias": take((cout,)), "scale": take((cout,))}
+            state[str(i)] = {"mean": take((cout,)), "var": take((cout,))}
+            p["w"] = take((cout, cin, k, k))
+        else:
+            stored = start_weights_dim[heads] if start_weights_dim else cout
+            heads += 1
+            p["b"] = take((stored,), cout)
+            p["w"] = take((stored, cin, k, k), cout)
+        params[str(i)] = p
+    return params, state, header
+
+
+def save_darknet_weights(spec: NetworkSpec, params, state, path: str,
+                         header=None, cutoff: int = -1):
+    """Write ``(params, state)`` (OIHW trees) as a Darknet ``.weights``
+    file in :func:`load_darknet_weights`' order, f32. ``cutoff`` is a
+    literal slice end over the blocks: the reference's default ``-1``
+    never writes the last block, which is a weightless yolo block in every
+    real cfg."""
+    if header is None:
+        header = np.zeros(5, dtype=np.int32)
+    with open(path, "wb") as fp:
+        np.asarray(header, dtype=np.int32).tofile(fp)
+        for i, b in enumerate(spec.blocks[:cutoff]):
+            if not isinstance(b, ConvBlock):
+                continue
+            p = params[str(i)]
+            arrays = ([p["bn"]["bias"], p["bn"]["scale"], state[str(i)]["mean"],
+                       state[str(i)]["var"]] if b.batch_normalize else [p["b"]])
+            for a in arrays + [p["w"]]:
+                a.detach().float().cpu().numpy().tofile(fp)
 
 
 def _maxpool(x, size: int, stride: int):

@@ -141,9 +141,17 @@ def _qconv_q8in(xq, q: QConv):
 
 def _quantize_conv(w, b, amax_in: float):
     """OIHW f32 weights → ``{"wq" int8 OIHW, "scale" (O,), "b" (O,),
-    "sx_inv" ()}``, bit-equal to the JAX package's leaves."""
+    "sx_inv" ()}``, bit-equal to the JAX package's leaves on every device.
+
+    ``s_w = max|w[o]| / 127`` is the IEEE quotient, as the JAX package's
+    eager division is: it is taken on the CPU and copied, because on the
+    card PyTorch divides by a Python scalar as ``a · (1/127)``, 1 ulp off
+    the quotient for some channels. ``w / s_w`` divides by a tensor, which
+    is the IEEE quotient on both devices; the products with the Python
+    scalar ``s_x`` round ``s_x`` to f32 first on both, as JAX does."""
     w = w.float()
-    s_w = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-12)
+    amax_w = w.abs().amax(dim=(1, 2, 3)).cpu()
+    s_w = torch.clamp_min(amax_w / 127.0, 1e-12).to(w.device)
     wq = torch.clamp(torch.round(w / s_w[:, None, None, None]), -127, 127)
     s_x = max(float(amax_in), 1e-12) / 127.0
     return {"wq": wq.to(torch.int8), "scale": s_w * s_x, "b": b.float(),

@@ -1,4 +1,5 @@
-"""Box geometry (counterpart of the JAX package's ``ops/boxes.py``)."""
+"""Box geometry (counterpart of the JAX package's ``ops/boxes.py``): the
+IoU of the reference NMS and the letterbox geometry."""
 
 from __future__ import annotations
 
@@ -21,3 +22,21 @@ def iou_no_plus_one_pairwise(boxes1, boxes2):
     area2 = (boxes2[..., 2] - boxes2[..., 0]) * (boxes2[..., 3] - boxes2[..., 1])
     union = area1[..., :, None] + area2[..., None, :] - inter
     return inter / torch.where(union == 0, torch.ones_like(union), union)
+
+
+def calculate_padding(orig_height, orig_width, new_height, new_width):
+    """Letterbox padding and scale factor of an ``orig`` image fitted into
+    ``new`` (the reference's ``utils/utils.py:calculate_padding``): a host
+    function of Python scalars. Returns ``(pad_h, pad_w, scale_factor)``,
+    the pads on each side of the original before the resize."""
+    if max(orig_height, orig_width) == orig_height:
+        new_img_width = orig_height * new_width / new_height
+        scale_factor = new_height / orig_height
+        pad_h = 0
+        pad_w = int((new_img_width - orig_width) / 2)
+    else:
+        scale_factor = new_width / orig_width
+        new_img_height = orig_width * new_height / new_width
+        pad_w = 0
+        pad_h = int((new_img_height - orig_height) / 2)
+    return pad_h, pad_w, scale_factor

@@ -1,5 +1,13 @@
-"""ROI crops of the detect→keypoints bridge (counterpart of the JAX
-package's ``ops/image.py``): the plain PyTorch versions of kernel K1.
+"""Image ops (counterpart of the JAX package's ``ops/image.py``): the
+letterbox of the detection path, and the ROI crops of the
+detect→keypoints bridge, the plain PyTorch versions of kernel K1.
+
+The letterbox pads to the model's aspect ratio with the reference's grey
+and resizes as ``jax.image.resize(method="linear")`` does, antialias
+included: separable weight matrices (a triangle filter widened by the
+scale when downsampling, each column normalised) contracted with the
+image; ``F.interpolate(antialias=False)`` keeps two taps when
+downsampling, so it is not this function.
 
 Bilinear resampling is written, as in the JAX package, as two contractions
 against two-tap "hat" matrices: rows first, then columns. Sample
@@ -14,7 +22,79 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+GREY = 127.0 / 255.0  # the reference's pad fill (127, 127, 127) in [0, 1]
+
+
+def pad_to(x, pad_h: int, pad_w: int, fill: float = GREY):
+    """Symmetric constant pad of NHWC or HWC: ``pad_h`` rows above and
+    below, ``pad_w`` columns left and right."""
+    return F.pad(x, (0, 0, pad_w, pad_w, pad_h, pad_h), value=fill)
+
+
+@functools.cache
+def _resize_weights(in_size: int, out_size: int, device="cpu"):
+    """(in_size, out_size) f32 weights of ``jax.image.resize``'s linear
+    method with antialiasing (``jax/_src/image/scale.py:compute_weight_mat``
+    at scale ``out/in``, no translation), built on the CPU in its order of
+    operations and copied once per device: sample centres ``(j + 0.5) ·
+    (in/out) − 0.5``; the triangle ``max(0, 1 − |s − i| / k)`` with ``k =
+    max(in/out, 1)``; each column divided by its sum (zero where the sum
+    is ~0); columns whose centre lies outside the input zeroed."""
+    inv_scale = 1.0 / (out_size / in_size)  # Python floats, as JAX has them
+    kernel_scale = torch.tensor(max(inv_scale, 1.0), dtype=torch.float32)
+    sample = ((torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale
+              - 0.5)
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]
+         ).abs() / kernel_scale
+    w = torch.clamp_min(1.0 - x.abs(), 0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def resize_bilinear(x, out_h: int, out_w: int):
+    """``jax.image.resize(x, ..., method="linear")`` (antialiased: the
+    filter widens when downsampling) of NHWC or HWC ``x``, in f32 (an
+    integer image is taken as f32 first). An axis whose size does not
+    change is left as it is, as JAX leaves it."""
+    batched = x.dim() == 4
+    if not batched:
+        x = x[None]
+    if not x.is_floating_point():
+        x = x.float()
+    _, h, w, _ = x.shape
+    if h != out_h:
+        x = torch.einsum("bhwc,ho->bowc", x,
+                         _resize_weights(h, out_h, x.device).to(x.dtype))
+    if w != out_w:
+        x = torch.einsum("bhwc,wo->bhoc", x,
+                         _resize_weights(w, out_w, x.device).to(x.dtype))
+    return x if batched else x[0]
+
+
+def letterbox(x, out_h: int, out_w: int, fill: float = GREY):
+    """Pad to the output's aspect ratio, then resize (the reference's
+    ``detect.py`` letterbox and ``calculate_padding``) of NHWC or HWC
+    ``x``. Returns ``(image, (pad_h, pad_w, ratio))``; ``ratio`` maps
+    original pixels to output pixels."""
+    h, w = (x.shape[1], x.shape[2]) if x.dim() == 4 else (x.shape[0], x.shape[1])
+    if max(h, w) == h:
+        new_w = h * out_w / out_h
+        ratio = out_h / h
+        pad_h, pad_w = 0, int((new_w - w) / 2)
+    else:
+        ratio = out_w / w
+        new_h = w * out_h / out_w
+        pad_w, pad_h = 0, int((new_h - h) / 2)
+    padded = pad_to(x, pad_h, pad_w, fill)
+    return resize_bilinear(padded, out_h, out_w), (pad_h, pad_w, ratio)
 
 
 def _crop_coords(boxes, out_h: int, out_w: int, H: int, W: int):

@@ -8,7 +8,8 @@ its checkout: it imports that checkout's ``chip_smoke.py`` and port,
 builds the seeded YOLOv3-416 (one class) and RektNet, warms a bf16 and an
 int8 ``TwoStageServer`` and serves 64 requests of B=8 on each
 (``chip_smoke.serve``), and prints one JSON line: frames/s of each server
-and the kernel launches counted over its requests. The two checkouts build
+and the kernel launches ``chip_smoke.serve`` counts (the wrappers' counts,
+or, for replayed requests, the profiler's). The two checkouts build
 their own kernels (each into its own git-ignored ``build/``). Needs a CUDA
 card; compare runs of one call only.
 """
@@ -45,7 +46,7 @@ yq, rq = cs.int8_models(cs.quantize_on_card(dev, frames_np), dev)
 for label, yolo, rekt in (("bf16", yb, rb), ("int8", yq, rq)):
     with torch.inference_mode():
         thresh = cs.pick_conf_thresh(yolo.detections(frames, with_classes=False), cs.MAX_DET)
-    launches, fps = cs.serve(label, yolo, rekt, frames, thresh, smi)
+    launches, fps, _ = cs.serve(label, yolo, rekt, frames, thresh, smi)
     out[label] = {"frames_per_s": fps, "launches": launches, "conf_thresh": thresh}
 print(json.dumps(out), flush=True)
 """

@@ -12,7 +12,8 @@ on the served frames) and prints for each:
   crop + keypoints at capacity 112, RektNet alone on 112 crops, and the
   whole pipeline, each with its host-clock time beside it;
 - ``torch.profiler`` over ``--requests`` served requests of a warmed
-  ``TwoStageServer``: wall time, device kernel time, the device's idle
+  ``TwoStageServer``, once served eagerly (``cuda_graphs=False``) and once
+  by CUDA graph replay: wall time, device kernel time, the device's idle
   share (1 − kernel time / wall), kernels per request, device time by
   kind of kernel and the ``--top`` kernels by device time.
 
@@ -102,11 +103,14 @@ def stages(label, yolo, rekt, frames, thresh, smi) -> None:
 
 
 def profile_served(label, yolo, rekt, frames, thresh, smi, n: int,
-                   top: int) -> None:
+                   top: int, graphs: bool) -> None:
     policy = AdaptiveCapacity(floor=64, quantum=16, warmup_capacity=96)
     server = TwoStageServer(yolo, rekt, conf_thresh=thresh,
-                            max_det=cs.MAX_DET, policy=policy)
-    server.warmup([cs.B_SERVE], capacities=[64, 80, 96, CAPACITY])
+                            max_det=cs.MAX_DET, policy=policy,
+                            cuda_graphs=graphs)
+    server.warmup([cs.B_SERVE], capacities=[64, 80, 96, CAPACITY],
+                  frame_dtype=frames.dtype)
+    label = f"{label} {'replayed' if graphs else 'eager'}"
     for _ in range(4):
         server(frames)
     torch.cuda.synchronize()
@@ -156,8 +160,9 @@ def main() -> int:
             thresh = cs.pick_conf_thresh(
                 yolo.detections(frames, with_classes=False), cs.MAX_DET)
             stages(label, yolo, rekt, frames, thresh, smi)
-            profile_served(label, yolo, rekt, frames, thresh, smi,
-                           args.requests, args.top)
+            for graphs in (False, True):
+                profile_served(label, yolo, rekt, frames, thresh, smi,
+                               args.requests, args.top, graphs)
     return 0
 
 

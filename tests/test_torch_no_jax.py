@@ -1,9 +1,11 @@
 """The PyTorch port imports neither JAX nor the JAX package.
 
 A fresh interpreter imports every module of the port, serves the tiny
-slice on the CPU in f32 and in int8 (quantized by the port itself), takes
-a RektNet training step, runs the plain residual stage and the plain
-routes of probes on each of the four probe kernels; then neither
+slice on the CPU in f32 and in int8 (quantized by the port itself), serves
+a frame through the ``MicroBatcher``, detects on an image of another size,
+runs the serve CLI on weights the port writes, takes a RektNet training
+step, runs the plain residual stage and the plain routes of probes on each
+of the four probe kernels; then neither
 ``jax`` nor any ``mit_driverless_cv_traininginfra_tpu`` module may be in
 ``sys.modules``. An AST walk over the port's files and ``chip_smoke.py``
 finds no import of the JAX package and no path into its directory."""
@@ -80,13 +82,42 @@ x = resstage.res_stage_pre(torch.randn(2, s, s, c))
 yq, ybf = resstage.fused_res_stage(x, pk, s, n, 0.1)
 assert yq.shape == ybf.shape == x.shape
 
+# the serving runtime around the pipeline: a MicroBatcher over the server,
+# the detection path, and the serve CLI on weights the port writes itself
+from mit_driverless_cv_traininginfra_tpu_torch.infer.detect import detect_image
+from mit_driverless_cv_traininginfra_tpu_torch.infer.microbatch import MicroBatcher
+with MicroBatcher(server, bucket_sizes=(2,)) as mb:
+    res = mb.submit((frames[0] * 255).astype(np.uint8)).result(timeout=120)
+assert res["keypoints"].shape == (16, 7, 2), res["keypoints"].shape
+boxes, scores = detect_image(yolo, rng.integers(0, 256, (48, 80, 3), dtype=np.uint8),
+                             conf_thresh=0.5)
+assert boxes.shape[1:] == (4,) and scores.shape == boxes.shape[:1]
+import contextlib, io, json, tempfile
+from mit_driverless_cv_traininginfra_tpu_torch.cli import serve
+from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import save_rektnet_pt
+with tempfile.TemporaryDirectory() as tmp:
+    darknet.save_darknet_weights(spec, convert.from_jax(yp), convert.from_jax(ys),
+                                 tmp + "/y.weights")
+    save_rektnet_pt(tmp + "/r.pt", rektnet.KeypointNet(convert.from_jax(rp),
+                                                      convert.from_jax(rs)))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--source", "synthetic:3", "--model_cfg",
+                         "tests/fixtures/tiny_test.cfg", "--vanilla_anchor",
+                         "--yolo_weights", tmp + "/y.weights", "--rektnet_weights",
+                         tmp + "/r.pt", "--precision", "int8", "--batch_size", "2",
+                         "--calib_frames", "2", "--max_det", "4", "--capacities", "8",
+                         "--device", "cpu", "--assert_no_compiles"])
+    assert rc == 0 and json.loads(out.getvalue().splitlines()[-1])["frames"] == 3
+
 from mit_driverless_cv_traininginfra_tpu_torch.probes import BY_NAME, PLAIN
 for name in ("tail", "P22", "P16", "Q16", "D3", "P13c"):
     probe = BY_NAME[name]
     probe.run(probe.build("cpu", small=True), PLAIN)
 for mod in ("ops.tail_conv", "ops.window_resample", "ops.int8_contract",
             "ops.strided_map", "probes.mosaic", "probes.crop", "probes.tail_conv1",
-            "probes.run"):
+            "probes.run", "cli.serve", "infer.microbatch", "infer.detect",
+            "ops.nms", "data.decode", "utils.logger"):
     assert "mit_driverless_cv_traininginfra_tpu_torch." + mod in sys.modules, mod
 
 assert "jax" not in sys.modules, "the port imported jax"

@@ -113,7 +113,7 @@ def test_server_answers_and_counts(setup):
     torch.testing.assert_close(short.keypoints, outs[-1].keypoints[:2])
     stats = server.stats()
     assert stats["calls"] == 5 and stats["batch_pads"] == 1
-    assert stats["cold_calls"] == 0  # every call ran a warmed bucket
+    assert stats["compiles"] == 0  # every call ran a warmed bucket
     # bootstrap + every 2nd call observed; the deferred one read by stats()
     assert stats["observations"] == 3
     assert stats["mean_load"] == float(direct.mask.sum())  # full batches

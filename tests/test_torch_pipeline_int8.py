@@ -140,6 +140,6 @@ def test_int8_server_warms_pads_and_counts(setup):
     assert torch.equal(short.keypoints, outs[-1].keypoints[:2])
     stats = server.stats()
     assert stats["calls"] == 4 and stats["batch_pads"] == 1
-    assert stats["cold_calls"] == 0
+    assert stats["compiles"] == 0
     assert stats["observations"] == 3  # bootstrap, every 2nd, drained
     assert fused_entry_block.launches == launches  # CPU: the plain version
