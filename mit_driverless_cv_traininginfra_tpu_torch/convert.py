@@ -1,9 +1,11 @@
-"""Weight carry-over from the JAX package's parameter trees.
+"""Weight carry-over between the JAX package's parameter trees and the
+port's.
 
 The JAX package keeps ``(params, state)`` as nested dicts with NHWC-side
 HWIO conv weights under the key ``"w"``. :func:`from_jax` maps such a tree,
 given as numpy arrays, to the same tree of torch tensors with OIHW conv
-weights; BN folding then happens in the port's own ``fold_bn``
+weights, and :func:`to_jax` maps a port tree back (a trained
+``TrainDarknet``'s ``trees()``, say); BN folding then happens in the port's own ``fold_bn``
 (``models.darknet.fold_bn``, ``models.rektnet.fold_bn``), so folding is
 held against the JAX package too. :func:`quantized_from_jax` carries the
 JAX package's int8 bundles across (``quantize_params``,
@@ -39,6 +41,22 @@ def from_jax(tree, device="cpu"):
         if key == "w" and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+def to_jax(tree):
+    """Nested dict of tensors (the port's layout) → nested dict of f32
+    numpy arrays in the JAX package's layout: 4-D arrays under ``"w"`` go
+    OIHW → HWIO."""
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            out[key] = to_jax(v)
+            continue
+        a = v.detach().float().cpu().numpy()
+        if key == "w" and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        out[key] = np.ascontiguousarray(a)
     return out
 
 

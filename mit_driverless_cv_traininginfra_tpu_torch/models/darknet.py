@@ -1,12 +1,14 @@
-"""Spec-driven Darknet/YOLOv3 — eval-mode inference on BN-folded weights
-(counterpart of the JAX package's ``models/darknet.py``).
+"""Spec-driven Darknet/YOLOv3: eval-mode inference on BN-folded weights,
+and training with live batch norm (counterpart of the JAX package's
+``models/darknet.py``).
 
 The graph comes from the port's frozen ``NetworkSpec``
 (``config/darknet_cfg.py``, a copy of the JAX package's parser). Parameter
 trees mirror the JAX package's with OIHW weights: ``{"<block index>":
 {"w", "bn": {"scale", "bias"}}}`` for BN convs and ``{"w", "b"}`` for the
 linear pre-yolo convs, plus a state tree of BN running ``{"mean",
-"var"}``. :func:`fold_bn` folds them; :class:`Darknet` runs the folded
+"var"}``. :func:`init_params` makes them, :class:`TrainDarknet` trains
+them, :func:`fold_bn` folds them and :class:`Darknet` runs the folded
 graph. Frames, activations and head outputs are NHWC; each convolution
 views its input as NCHW (channels_last). :func:`load_darknet_weights` and
 :func:`save_darknet_weights` read and write such trees as Darknet
@@ -34,9 +36,36 @@ from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
     YoloBlock,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import (
+    _BN,
     BN_EPS,
     conv2d,
 )
+
+
+def init_params(spec: NetworkSpec, gen: torch.Generator):
+    """``(params, state)`` trees of ``spec``, f32 on the CPU (the JAX
+    package's ``init_params``): He-normal OIHW conv weights, std
+    sqrt(2 / (k·k·cin)), drawn from ``gen`` one conv block after the other
+    (``torch.Generator`` draws other numbers than ``jax.random``); BN scale
+    1, bias 0, running mean 0, var 1; a zero ``b`` for the linear pre-yolo
+    convs. Keys are the blocks' indices as strings."""
+    params, state = {}, {}
+    chans = spec.out_channels
+    for i, b in enumerate(spec.blocks):
+        if not isinstance(b, ConvBlock):
+            continue
+        std = (2.0 / (b.size * b.size * chans[i])) ** 0.5
+        p = {"w": torch.randn((b.filters, chans[i], b.size, b.size),
+                              generator=gen) * std}
+        if b.batch_normalize:
+            p["bn"] = {"scale": torch.ones(b.filters),
+                       "bias": torch.zeros(b.filters)}
+            state[str(i)] = {"mean": torch.zeros(b.filters),
+                             "var": torch.ones(b.filters)}
+        else:
+            p["b"] = torch.zeros(b.filters)
+        params[str(i)] = p
+    return params, state
 
 
 def fold_bn(params, state, spec: NetworkSpec):
@@ -160,6 +189,20 @@ def _upsample(x, stride: int):
     return x.repeat_interleave(stride, dim=1).repeat_interleave(stride, dim=2)
 
 
+def head_predictions(head_out, num_anchors: int, num_classes: int):
+    """The training branch's views of a head (B, H, W, A·(5+C)) NHWC:
+    ``x``, ``y``, ``conf``, ``cls`` through the sigmoid, ``w``, ``h`` and
+    the raw ``conf_logit`` (the loss takes its BCE from logits), each
+    (B, A, H, W[, C])."""
+    b, gh, gw, _ = head_out.shape
+    pred = head_out.reshape(b, gh, gw, num_anchors, 5 + num_classes
+                            ).permute(0, 3, 1, 2, 4)
+    return {"x": torch.sigmoid(pred[..., 0]), "y": torch.sigmoid(pred[..., 1]),
+            "w": pred[..., 2], "h": pred[..., 3],
+            "conf": torch.sigmoid(pred[..., 4]), "conf_logit": pred[..., 4],
+            "cls": torch.sigmoid(pred[..., 5:])}
+
+
 def decode_head(head_out, anchors: Sequence[Tuple[float, float]],
                 img_height: int, num_classes: int,
                 with_classes: bool = True):
@@ -243,9 +286,11 @@ class YoloHeads(nn.Module):
         x, _ = self._walk(x, stop + 1)
         return x
 
-    def _walk(self, x, end: int):
+    def _walk(self, x, end: int, conv=None):
         """Blocks up to ``end`` (exclusive) → (last activation, pre-yolo
-        maps met so far)."""
+        maps met so far). ``conv(i, x)`` runs conv block ``i`` (default
+        :meth:`_conv`)."""
+        conv = conv or self._conv
         slope = self.spec.net.leaky_slope
         x, layer_outputs = self._enter(x)
         if end < len(layer_outputs):
@@ -256,7 +301,7 @@ class YoloHeads(nn.Module):
         for i in range(len(layer_outputs), end):
             b = self.spec.blocks[i]
             if isinstance(b, ConvBlock):
-                x = self._conv(i, x)
+                x = conv(i, x)
                 if b.activation == "leaky":
                     x = _leaky(x, slope)
                 elif b.activation == "ReLU":
@@ -308,3 +353,83 @@ class Darknet(YoloHeads):
 
     def _conv(self, i: int, x):
         return self.convs[str(i)](x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class _TrainConv(nn.Module):
+    """A conv block's f32 master ``weight`` (OIHW) and either a batch norm
+    (``bn``: its ``weight``/``bias`` parameters and running stats) or the
+    linear pre-yolo conv's ``bias``."""
+
+    def __init__(self, p, s, stride: int, padding: int):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(p["w"].detach().clone().float())
+        if "bn" in p:
+            self.bn = _BN(p["bn"], s)
+        else:
+            self.bias = nn.Parameter(p["b"].detach().clone().float())
+
+    def forward(self, x, dtype, train: bool):
+        """NCHW ``x`` → the conv (parameters cast to ``dtype``), then the
+        batch norm (batch statistics and a running-stat update in training)
+        or ``+ b``, each rounded to ``dtype`` as the JAX package rounds."""
+        y = F.conv2d(x, self.weight.to(dtype), None, self.stride, self.padding)
+        if hasattr(self, "bn"):
+            return self.bn(y, dtype, train)
+        return y + self.bias.to(dtype)[None, :, None, None]
+
+
+class TrainDarknet(YoloHeads):
+    """Trainable Darknet on ``(params, state)`` trees of ``spec`` (the JAX
+    package's ``forward_features`` on unfolded parameters): f32 master
+    parameters and the BN running stats as buffers, a :class:`_TrainConv`
+    per conv block under ``convs["<i>"]``.
+
+    ``forward_features(x, train, dtype)`` casts the parameters and the
+    frames to ``dtype`` (f32 or bf16, as the JAX step casts its parameter
+    tree; not ``torch.autocast``); in training, batch norm takes batch
+    statistics in f32 and updates the running stats in place.
+    ``detections(x)`` is the eval forward in f32 on the running stats,
+    unfolded (folding moves the rounding). :meth:`folded` gives the tree
+    the serving :class:`Darknet` takes."""
+
+    frame_dtype = torch.float32
+
+    def __init__(self, spec: NetworkSpec, params, state):
+        super().__init__(spec)
+        self.convs = nn.ModuleDict({
+            str(i): _TrainConv(params[str(i)], state.get(str(i)), b.stride,
+                               (b.size - 1) // 2)
+            for i, b in enumerate(spec.blocks) if isinstance(b, ConvBlock)})
+
+    def _conv(self, i: int, x, train: bool = False, dtype=torch.float32):
+        y = self.convs[str(i)](x.permute(0, 3, 1, 2), dtype, train)
+        return y.permute(0, 2, 3, 1)
+
+    def forward_features(self, x, train: bool = False, dtype=torch.float32):
+        """x (B, H, W, C) → the raw pre-yolo maps in ``dtype``, one per
+        yolo head, each NHWC (B, h, w, A·(5+C))."""
+        conv = functools.partial(self._conv, train=train, dtype=dtype)
+        return self._walk(x.to(dtype), len(self.spec.blocks), conv)[1]
+
+    def trees(self):
+        """The ``(params, state)`` trees of the current values (detached
+        copies)."""
+        params, state = {}, {}
+        for key, m in self.convs.items():
+            p = {"w": m.weight.detach().clone()}
+            if hasattr(m, "bn"):
+                p["bn"] = {"scale": m.bn.weight.detach().clone(),
+                           "bias": m.bn.bias.detach().clone()}
+                state[key] = {"mean": m.bn.running_mean.clone(),
+                              "var": m.bn.running_var.clone()}
+            else:
+                p["b"] = m.bias.detach().clone()
+            params[key] = p
+        return params, state
+
+    def folded(self):
+        """The current weights BN-folded (:func:`fold_bn`), the tree the
+        serving :class:`Darknet` takes."""
+        with torch.no_grad():
+            return fold_bn(*self.trees(), self.spec)

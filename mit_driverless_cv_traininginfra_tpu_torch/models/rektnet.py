@@ -174,9 +174,11 @@ def batch_norm(x, bn: Dict[str, torch.Tensor], train: bool = False):
     the biased variance, and ``batch_stats = (mean, unbiased var)`` feeds
     :func:`update_running`; in eval ``bn["mean"]``, ``bn["var"]`` are used
     and ``batch_stats`` is None. ``scale = rsqrt(var + eps)·γ`` in f32,
-    then cast to ``x.dtype`` like β and the mean."""
+    then cast to ``x.dtype`` like β and the mean. (f64 ``x``, a reference
+    evaluation, keeps f64 throughout.)"""
+    sdt = torch.promote_types(x.dtype, torch.float32)
     if train:
-        xf = x.float()
+        xf = x.to(sdt)
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf - mean[None, :, None, None]) ** 2).mean(dim=(0, 2, 3))
         n = x.shape[0] * x.shape[2] * x.shape[3]
@@ -184,7 +186,7 @@ def batch_norm(x, bn: Dict[str, torch.Tensor], train: bool = False):
     else:
         mean, var = bn["mean"], bn["var"]
         stats = None
-    scale = (torch.rsqrt(var.float() + BN_EPS) * bn["scale"].float()).to(x.dtype)
+    scale = (torch.rsqrt(var.to(sdt) + BN_EPS) * bn["scale"].to(sdt)).to(x.dtype)
     bias = bn["bias"].to(x.dtype)
 
     def c(v):

@@ -1,9 +1,38 @@
-"""Box geometry (counterpart of the JAX package's ``ops/boxes.py``): the
-IoU of the reference NMS and the letterbox geometry."""
+"""Box geometry (counterpart of the JAX package's ``ops/boxes.py``): box
+formats, the evaluator's IoU with the reference's +1 pixel convention, the
+IoU of the reference NMS (without it) and the letterbox geometry."""
 
 from __future__ import annotations
 
 import torch
+
+
+def xywh2xyxy(x):
+    """[cx, cy, w, h] → [x1, y1, x2, y2] over the last axis."""
+    return torch.stack([x[..., 0] - x[..., 2] / 2, x[..., 1] - x[..., 3] / 2,
+                        x[..., 0] + x[..., 2] / 2, x[..., 1] + x[..., 3] / 2],
+                       dim=-1)
+
+
+def bbox_iou(box1, box2, x1y1x2y2: bool = True):
+    """Elementwise IoU with the reference evaluator's +1 pixel convention
+    (widths ``x2 − x1 + 1``), broadcast over leading dims; ``x1y1x2y2=False``
+    takes [cx, cy, w, h] boxes."""
+    if not x1y1x2y2:
+        box1, box2 = xywh2xyxy(box1), xywh2xyxy(box2)
+    b1_x1, b1_y1, b1_x2, b1_y2 = box1.unbind(-1)
+    b2_x1, b2_y1, b2_x2, b2_y2 = box2.unbind(-1)
+    inter_w = (torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1) + 1).clamp(min=0)
+    inter_h = (torch.minimum(b1_y2, b2_y2) - torch.maximum(b1_y1, b2_y1) + 1).clamp(min=0)
+    inter = inter_w * inter_h
+    area1 = (b1_x2 - b1_x1 + 1) * (b1_y2 - b1_y1 + 1)
+    area2 = (b2_x2 - b2_x1 + 1) * (b2_y2 - b2_y1 + 1)
+    return inter / (area1 + area2 - inter + 1e-12)
+
+
+def bbox_iou_pairwise(boxes1, boxes2, x1y1x2y2: bool = True):
+    """All-pairs :func:`bbox_iou`: (..., N, 4) × (..., M, 4) → (..., N, M)."""
+    return bbox_iou(boxes1[..., :, None, :], boxes2[..., None, :, :], x1y1x2y2)
 
 
 def iou_no_plus_one_pairwise(boxes1, boxes2):

@@ -1,16 +1,23 @@
-"""RektNet checkpoints in the reference layout (counterpart of the JAX
-package's ``train/checkpoints.py``).
+"""Checkpoints (counterpart of the JAX package's ``train/checkpoints.py``).
 
-A ``.pt`` file holds ``{epoch, model: KeypointNet state_dict, optimizer:
-torch.optim state_dict}`` (the reference's ``train_eval.py``), so the
-reference's tooling reads the port's runs and the port resumes from the
-reference's. The optimizer slot is ``torch.optim.Adam.state_dict()``
+YOLO: the whole train state — the :class:`TrainDarknet`'s parameters and
+BN running stats (its ``state_dict``), the optimizer's ``state_dict`` and
+the step — in one ``torch.save`` file, with the epoch in a ``.meta`` text
+file beside it (:func:`save_yolo_state`, :func:`load_yolo_state`; the JAX
+package keeps an orbax tree). Darknet ``.weights`` files are
+``models.darknet``'s.
+
+RektNet, in the reference layout: a ``.pt`` file holds ``{epoch, model:
+KeypointNet state_dict, optimizer: torch.optim state_dict}`` (the
+reference's ``train_eval.py``), so the reference's tooling reads the
+port's runs and the port resumes from the reference's. The optimizer slot is ``torch.optim.Adam.state_dict()``
 itself; that file is the whole train state, so it also serves to resume
 (the JAX package keeps a separate orbax tree for that).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -76,3 +83,33 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree
+
+
+def _meta_path(path: str) -> str:
+    return os.path.splitext(path)[0] + ".meta"
+
+
+def save_yolo_state(path: str, model, optimizer: torch.optim.Optimizer,
+                    step: int, epoch: int) -> None:
+    """Write ``{model, optimizer, step}`` (tensors on the CPU) to ``path``
+    and then ``epoch`` to the ``.meta`` file beside it (``x.pt`` →
+    ``x.meta``), so a crash between the two leaves the older epoch."""
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save({"model": sd, "optimizer": _to_cpu(optimizer.state_dict()),
+                "step": int(step)}, path)
+    with open(_meta_path(path), "w") as f:
+        f.write(str(epoch))
+
+
+def load_yolo_state(path: str, model, optimizer: torch.optim.Optimizer):
+    """Restore ``model`` and ``optimizer`` from :func:`save_yolo_state`'s
+    file (onto the model's device). Returns ``(step, epoch)``; the epoch
+    is 0 when the ``.meta`` file is missing."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(ckpt["model"])
+    optimizer.load_state_dict(ckpt["optimizer"])
+    epoch = 0
+    if os.path.exists(_meta_path(path)):
+        with open(_meta_path(path)) as f:
+            epoch = int(f.read())
+    return int(ckpt["step"]), epoch

@@ -4,7 +4,8 @@ A fresh interpreter imports every module of the port, serves the tiny
 slice on the CPU in f32 and in int8 (quantized by the port itself), serves
 a frame through the ``MicroBatcher``, detects on an image of another size,
 runs the serve CLI on weights the port writes, takes a RektNet training
-step, runs the plain residual stage and the plain routes of probes on each
+step and a YOLO training step (a ``TrainDarknet``) and validates it,
+runs the plain residual stage and the plain routes of probes on each
 of the four probe kernels; then neither
 ``jax`` nor any ``mit_driverless_cv_traininginfra_tpu`` module may be in
 ``sys.modules``. An AST walk over the port's files and ``chip_smoke.py``
@@ -44,7 +45,7 @@ spec1, folded = stem_opt.slice_preyolo(
     spec, darknet.fold_bn(convert.from_jax(yp), convert.from_jax(ys), spec))
 yolo = darknet.Darknet(spec1, folded)
 rekt = rektnet.RektNet(rektnet.fold_bn(convert.from_jax(rp), convert.from_jax(rs)))
-frames, _ = synthetic.yolo_batch(rng, 2, 64, min_h=8, max_h=30)
+frames, ytargets = synthetic.yolo_batch(rng, 2, 64, min_h=8, max_h=30)
 server = TwoStageServer(yolo, rekt, conf_thresh=0.5,
                         policy=AdaptiveCapacity(floor=8, quantum=8))
 server.warmup([2], capacities=[8])
@@ -70,6 +71,16 @@ imgs, pts = synthetic.rektnet_batch(rng, 2)
 total, _, _ = steps.rektnet_train_step(model, opt, torch.from_numpy(imgs), None,
                                        torch.from_numpy(pts), synth_target_sigma=1.0)
 assert torch.isfinite(total)
+
+import contextlib, io
+from mit_driverless_cv_traininginfra_tpu_torch.train.yolo_driver import validate_map
+ymodel = darknet.TrainDarknet(spec, *darknet.init_params(spec, torch.Generator().manual_seed(0)))
+yopt = optim.make_optimizer(ymodel.parameters(), "Adam", lr=1e-3)
+loss, comps = steps.yolo_train_step(ymodel, yopt, torch.from_numpy(frames),
+                                    torch.from_numpy(ytargets), compute_dtype="bfloat16")
+assert torch.isfinite(loss) and comps.shape == (6,)
+with contextlib.redirect_stdout(io.StringIO()):
+    validate_map(data_loader=[(["a", "b"], frames, ytargets)], model=ymodel, device="cpu")
 
 n, c, s = 2, 64, 5
 pk = {"w1_k": torch.ones((n, c // 2, c), dtype=torch.int8),
@@ -117,7 +128,8 @@ for name in ("tail", "P22", "P16", "Q16", "D3", "P13c"):
 for mod in ("ops.tail_conv", "ops.window_resample", "ops.int8_contract",
             "ops.strided_map", "probes.mosaic", "probes.crop", "probes.tail_conv1",
             "probes.run", "cli.serve", "infer.microbatch", "infer.detect",
-            "ops.nms", "data.decode", "utils.logger"):
+            "ops.nms", "data.decode", "utils.logger", "models.yolo_loss",
+            "ops.metrics", "data.loader", "train.yolo_driver", "utils.profiling"):
     assert "mit_driverless_cv_traininginfra_tpu_torch." + mod in sys.modules, mod
 
 assert "jax" not in sys.modules, "the port imported jax"
