@@ -9,9 +9,9 @@ int8 configuration; the int8 residual stage (K5) on the int8 forward's
 26² activations; the Pallas probes of the repository's ``tools/`` on four
 kernels, at the probes' sizes; RektNet training at full width (net_size
 16, 80×80, 7 keypoints, B=32); YOLO training at full width (YOLOv3-416,
-one class, B=8) — on seeded random weights, and on the weights that YOLO
-training makes of synthetic scenes, and checks its hand-written CUDA
-kernels:
+one class, B=8), and from disk at the repository's 800² training cfg —
+on seeded random weights, and on the weights that YOLO training makes of
+synthetic scenes, and checks its hand-written CUDA kernels:
 
 1. device: requires CUDA (no CPU fallback); prints the card's name and
    power limit as nvidia-smi reports them;
@@ -82,7 +82,19 @@ kernels:
    that runs epoch 3 only; 200 bf16 steps on a pool of 256 scenes (the
    loss must fall), ``validate_map`` on 32 held-out scenes, and the
    trained weights BN-folded into ``Darknet`` through the f32 pipeline on
-   the card and on the CPU (detection masks equal).
+   the card and on the CPU (detection masks equal);
+11. YOLO training from disk (``phase_yolo_disk``, each part's seconds
+   printed) at the repository's ``model_cfg/yolo_baseline.cfg`` as shipped
+   (YOLOv3, 80 classes, 800²): 48 cone scenes at 1280×960 and 1600×1200
+   written as .npy and PNG (PNG read only where the native core builds),
+   ``cli/kmeans_csvs`` (9 anchors the cfg reads back, a scale per
+   resolution), the host feed rate (items/s at 1 worker and at every
+   core) beside the 800² step's (bf16, device-aug and f32 ms at B=8),
+   ``cli/yolo_train`` with every host augmentation for 2 epochs (the
+   ``.weights`` and state files reloaded equal), a resume for the third,
+   an ``--evaluate`` run and a ``--device_aug --preload_device`` epoch
+   (finite losses, an mAP line each), the device-aug f32 step card vs CPU
+   and against float64; no K1-K5 wrapper count moves.
 
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
@@ -1820,28 +1832,66 @@ def sgd_update_f64(spec, imgs, targets, dev, lr: float = 0.01) -> dict:
     return {n: (-lr * p.grad.double()).cpu() for n, p in model.named_parameters()}
 
 
-def phase_yolo_train_agree(dev) -> None:
+def pixel_corners(targets: np.ndarray, size: int) -> np.ndarray:
+    """Normalised [c, cx, cy, w, h] targets → pixel-corner labels, zero
+    rows kept (what ``ImageLabelDataset(device_aug=True)`` yields)."""
+    px = np.zeros_like(targets)
+    px[..., 0] = targets[..., 0]
+    px[..., 1] = (targets[..., 1] - targets[..., 3] / 2) * size
+    px[..., 2] = (targets[..., 2] - targets[..., 4] / 2) * size
+    px[..., 3] = (targets[..., 1] + targets[..., 3] / 2) * size
+    px[..., 4] = (targets[..., 2] + targets[..., 4] / 2) * size
+    px[targets.sum(-1) == 0] = 0
+    return px
+
+
+def phase_yolo_train_agree(dev, device_aug: bool = False) -> None:
     """One f32 SGD step of YOLOv3-416 at B=2 from the same seeded trees on
     the card and on the CPU (SGD: see ``phase_train_agree``), each also
-    measured against a float64 evaluation of the same step."""
+    measured against a float64 evaluation of the same step. ``device_aug``:
+    the step is ``yolo_train_step_device_aug`` on pixel-corner labels, every
+    augmentation on (affine, flip, jitter, noise) with the same draws on
+    both devices (drawn on the card); the float64 step takes the card's
+    augmented batch."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops import device_aug as aug
     from mit_driverless_cv_traininginfra_tpu_torch.train.optim import make_optimizer
-    from mit_driverless_cv_traininginfra_tpu_torch.train.steps import yolo_train_step
+    from mit_driverless_cv_traininginfra_tpu_torch.train.steps import (
+        yolo_train_step,
+        yolo_train_step_device_aug,
+    )
 
     spec = yolo_spec()
     imgs, targets = map(torch.from_numpy, yolo_scenes(22, 2))
+    label = "device-aug step" if device_aug else "step"
+    if device_aug:
+        labels = torch.from_numpy(pixel_corners(targets.numpy(), SIZE))
+        draws = aug.sample_draws(torch.Generator(device=dev).manual_seed(5), 2, SIZE,
+                                 SIZE, 3, augment_affine=True, noise=True)
+
+        def step(model, opt, d):
+            return yolo_train_step_device_aug(
+                model, opt, imgs.to(d), labels.to(d), {k: v.to(d) for k, v in draws.items()},
+                compute_dtype="float32", **YOLO_KW)
+    else:
+        def step(model, opt, d):
+            return yolo_train_step(model, opt, imgs.to(d), targets.to(d),
+                                   compute_dtype="float32", **YOLO_KW)
     out = {}
     for d in ("cpu", dev):
         model = train_darknet(spec, d)
         before = {k: v.clone() for k, v in model.state_dict().items()}
         opt = make_optimizer(model.parameters(), "SGD", lr=0.01, momentum=0.9)
         t0 = time.perf_counter()
-        loss, comps = yolo_train_step(model, opt, imgs.to(d), targets.to(d),
-                                      compute_dtype="float32", **YOLO_KW)
+        loss, comps = step(model, opt, d)
         loss = float(loss)
-        log(f"yolo f32 step on {d} (B=2): loss {loss!r} components "
+        log(f"yolo f32 {label} on {d} (B=2): loss {loss!r} components "
             f"{comps.cpu().tolist()} in {time.perf_counter() - t0:.2f} s")
         out[str(d)] = (loss, before, {k: v.cpu() for k, v in model.state_dict().items()})
     (l_cpu, before, sd_cpu), (l_card, _, sd_card) = out["cpu"], out[str(dev)]
+    if device_aug:
+        with torch.no_grad():
+            imgs, px = aug.apply(imgs.to(dev), labels.to(dev), draws)
+            targets = aug.pixel_labels_to_targets(px, SIZE, SIZE)
     upd64 = sgd_update_f64(spec, imgs, targets, dev)
     scale = max(float(u.abs().max()) for u in upd64.values())
 
@@ -1855,7 +1905,7 @@ def phase_yolo_train_agree(dev) -> None:
     worst_stat = max(float((sd_card[k] - v).abs().max() / v.abs().max().clamp_min(1e-12))
                      for k, v in sd_cpu.items()
                      if k.endswith(("running_mean", "running_var")))
-    log(f"yolo f32 step card vs CPU: loss {l_card!r} vs {l_cpu!r}; worst update "
+    log(f"yolo f32 {label} card vs CPU: loss {l_card!r} vs {l_cpu!r}; worst update "
         f"{worst_upd!r} of the largest ({worst_name}); from the float64 step: card "
         f"{card64!r} ({card64_name}), CPU {cpu64!r} ({cpu64_name}); worst running "
         f"stat {worst_stat!r} of its scale")
@@ -1869,13 +1919,23 @@ def phase_yolo_train_agree(dev) -> None:
     # the step's conditioning, with a quarter of it as room for cuDNN's
     # nondeterministic backward; the CPU (deterministic) within 1e-2 of
     # the float64 step, and the two within 1e-2 of each other.
-    check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), "yolo f32 step: loss differs")
-    check(cpu64 <= 1e-2, "yolo f32 step: the CPU's update is off the float64 step")
+    check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), f"yolo f32 {label}: loss differs")
+    check(worst_stat <= 1e-4, f"yolo f32 {label}: running stats differ")
     check(card64 <= 1.25 * cpu64,
-          "yolo f32 step: the card's update is further from the float64 step "
+          f"yolo f32 {label}: the card's update is further from the float64 step "
           "than the CPU's by more than a quarter")
-    check(worst_upd <= 1e-2, "yolo f32 step: parameter updates differ")
-    check(worst_stat <= 1e-4, "yolo f32 step: running stats differ")
+    if not device_aug:
+        check(cpu64 <= 1e-2, f"yolo f32 {label}: the CPU's update is off the float64 step")
+        check(worst_upd <= 1e-2, f"yolo f32 {label}: parameter updates differ")
+        return
+    # on the augmented batch the CPU's f32 step is the least accurate of the
+    # three: oneDNN's convolution backward puts convs.0.weight's update
+    # 1.99e-2 of the largest from the float64 step (card's draws; 1.43e-2 on
+    # a CPU rehearsal's, 4.3e-3 there with oneDNN off; jitter alone 1.46e-2),
+    # while the card's sits 6.4e-3 away, as on the plain batch (6.8e-3). So
+    # the card is held to the float64 step itself at the CPU's bound above,
+    # 1e-2, and the card-vs-CPU difference, the sum of the two, is logged.
+    check(card64 <= 1e-2, f"yolo f32 {label}: the card's update is off the float64 step")
 
 
 def phase_yolo_train_card(dev, smi) -> None:
@@ -2051,6 +2111,313 @@ def phase_yolo_driver(dev, smi) -> None:
     check(int(m.sum()) > 0, "yolo trained weights: no detection")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: YOLO training from disk
+# ---------------------------------------------------------------------------
+
+# scenes of 4 × 3 cone_scene tiles at two resolutions, each larger than one
+# 800² patch; the higher one has bigger cones, as a closer camera would
+DISK_RES = ((960, 1280, 320, 10, 85), (1200, 1600, 400, 12, 106))  # H, W, tile, cone h
+DISK_SCENES = 48
+DISK_B = 8
+DISK_CFG = "model_cfg/yolo_baseline.cfg"  # YOLOv3, 80 classes, 800², as shipped
+DISK_POOL = 64  # samples of the --preload_device pool
+DISK_AUGS = ["--augment_affine", "--augment_hsv", "--augment_lr_flip", "--data_aug",
+             "--augment_noise", "--augment_blur", "--augment_contrast", "--augment_sharpen"]
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG by the standard library: filter 0 on each row,
+    one zlib stream."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def render_disk_dataset(root: str) -> str:
+    """DISK_SCENES cone scenes, half at each of DISK_RES, each from its own
+    seed, written as .npy and PNG files; ``all.csv`` names the PNGs when the
+    native core decodes them here, else the .npy files. Returns the CSV."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mit_driverless_cv_traininginfra_tpu_torch.data import decode, synthetic
+    from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_csv import (
+        YoloCsvRow,
+        write_yolo_csv,
+    )
+
+    def render(k: int):
+        h, w, tile, lo, hi = DISK_RES[k % 2]
+        rng = np.random.default_rng(1000 + k)
+        img = np.zeros((h, w, 3), np.float32)
+        boxes = []
+        for y0 in range(0, h, tile):
+            for x0 in range(0, w, tile):
+                t, b = synthetic.cone_scene(rng, size=tile, min_h=lo, max_h=hi)
+                img[y0:y0 + tile, x0:x0 + tile] = t
+                boxes += [[x1 + x0, y1 + y0, y2 - y1, x2 - x1] for x1, y1, x2, y2 in b]
+        rgb = (img * 255).round().astype(np.uint8)
+        np.save(f"{root}/scene_{k:03d}.npy", rgb)
+        write_png(f"{root}/scene_{k:03d}.png", rgb)
+        return w, h, np.asarray(boxes, np.float32)
+
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        scenes = list(ex.map(render, range(DISK_SCENES)))
+    png = decode.native_core() is not None
+    if png:  # the PNG route: the core's decode is the array written
+        check(np.array_equal(decode.read_rgb(f"{root}/scene_000.png"),
+                             np.load(f"{root}/scene_000.npy")),
+              "yolo disk: the native core decoded another image than was written")
+    ext = "png" if png else "npy"
+    log(f"yolo disk: {DISK_SCENES} scenes at {[r[:2] for r in DISK_RES]} (H, W), "
+        f"{sum(len(b) for _, _, b in scenes)} cones; decode route "
+        f"{'native core, PNG' if png else '.npy (the native core does not build here)'}")
+    rows = [YoloCsvRow(f"scene_{k:03d}.{ext}", w, h, 1.0, b)
+            for k, (w, h, b) in enumerate(scenes)]
+    write_yolo_csv(f"{root}/all.csv", rows)
+    return f"{root}/all.csv"
+
+
+def run_cli(main, argv, what: str) -> str:
+    """``main(argv)`` with its standard output captured; it must return 0."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = main(argv)
+    check(rc == 0, f"{what}: exit code {rc}")
+    log(f"{what}: {time.perf_counter() - t0:.1f} s")
+    return text.getvalue()
+
+
+def train_lines(text: str):
+    """(epoch, batch, Total) of each ``train Epoch`` log line."""
+    rows = re.findall(r"^train Epoch: (\d+), Batch: (\d+)/\d+, Total:\s+([^,\s]+)", text,
+                      re.M)
+    return [(int(e), int(b), float(t)) for e, b, t in rows]
+
+
+def log_run(what: str, text: str) -> None:
+    for line in text.splitlines():
+        if line.startswith(("Num train", "Num validate", "Device pool", "Resumed",
+                            "Average Validation", "mAP:")):
+            log(f"{what}: {line}")
+    lines = train_lines(text)
+    check(all(math.isfinite(t) for _, _, t in lines), f"{what}: a non-finite loss")
+    if lines:
+        log(f"{what}: {len(lines)} train steps, Total first {lines[0][2]!r} last "
+            f"{lines[-1][2]!r}")
+
+
+def feed_rate(dataset, workers: int, n: int) -> float:
+    """Items a second of ``dataset`` through ``DataLoader`` at ``workers``
+    threads, over the first n items (batches of DISK_B)."""
+    from mit_driverless_cv_traininginfra_tpu_torch.data.loader import DataLoader
+
+    sub = type("Sub", (), {"__len__": lambda self: n,
+                           "__getitem__": lambda self, i: dataset[i]})()
+    t0 = time.perf_counter()
+    for _ in DataLoader(sub, DISK_B, shuffle=False, num_workers=workers):
+        pass
+    return n / (time.perf_counter() - t0)
+
+
+def disk_step_times(spec, dev, smi) -> None:
+    """The 800² step at B=DISK_B on the cfg's model: bf16 and f32 ms a step,
+    and the device-aug step (flip, jitter, noise on the card) beside the
+    plain bf16 step; frames/s and peak memory."""
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.device_aug import sample_draws
+    from mit_driverless_cv_traininginfra_tpu_torch.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra_tpu_torch.train.steps import (
+        yolo_train_step,
+        yolo_train_step_device_aug,
+    )
+
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
+
+    size = spec.net.width
+    imgs, targets = synthetic.yolo_batch(np.random.default_rng(40), DISK_B, size,
+                                         min_h=10, max_h=110)
+    imgs, targets = torch.from_numpy(imgs).to(dev), torch.from_numpy(targets).to(dev)
+    px = torch.from_numpy(pixel_corners(targets.cpu().numpy(), size)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for name, dt, aug in (("bf16", "bfloat16", False), ("bf16 device-aug", "bfloat16", True),
+                          ("f32", "float32", False)):
+        model = train_darknet(spec, dev)
+        opt = make_optimizer(model.parameters(), "Adam", lr=1e-4)
+
+        def step():
+            if aug:
+                draws = sample_draws(gen, *imgs.shape, noise=True)
+                return yolo_train_step_device_aug(model, opt, imgs, px, draws,
+                                                  compute_dtype=dt, **YOLO_KW)[0]
+            return yolo_train_step(model, opt, imgs, targets, compute_dtype=dt, **YOLO_KW)[0]
+
+        step()
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        losses = torch.stack([step() for _ in range(10)]).cpu()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e2
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        log(f"yolo disk step {size}² {name} B={DISK_B}: {ms!r} ms/step = "
+            f"{DISK_B * 1e3 / ms!r} frames/s, max_memory_allocated {peak!r} MiB on {smi}")
+        check(bool(torch.isfinite(losses).all()), f"yolo disk step {name}: non-finite loss")
+        del model, opt
+
+
+def phase_yolo_disk(dev, smi) -> None:
+    """YOLO training from disk at the repository's own training cfg
+    (``model_cfg/yolo_baseline.cfg``: YOLOv3, 80 classes, 800²): cone scenes
+    written to disk, ``cli/kmeans_csvs`` → CSVs with 9 anchors and a scale
+    per resolution, then ``cli/yolo_train`` (every host augmentation, mixed
+    precision ``auto``, a loader thread per core) for 2 epochs, a resume
+    for a third, an ``--evaluate`` run, and a ``--device_aug
+    --preload_device`` epoch; the ``.weights`` and state files reloaded
+    equal; the host feed rate beside the step's; the device-aug step card
+    vs CPU."""
+    import os
+    import tempfile
+
+    from mit_driverless_cv_traininginfra_tpu_torch.cli import kmeans_csvs, yolo_train
+    from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
+        load_network_spec,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_csv import read_yolo_csv
+    from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_dataset import (
+        ImageLabelDataset,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.models import darknet
+    from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import (
+        load_yolo_state,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.train.optim import make_optimizer
+
+    cores = os.cpu_count()
+    cwd = os.getcwd()
+    cfg_src = os.path.join(os.path.dirname(os.path.abspath(__file__)), DISK_CFG)
+    timings = {}
+    # as `yolo_train` runs for a user: the serving phases turned cuDNN's
+    # autotuner on, which would time each new 800² shape here
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        all_csv = render_disk_dataset(tmp)
+        timings["render"] = time.perf_counter() - t0
+        run_cli(kmeans_csvs.main, ["--input_csvs", all_csv, "--dataset_path", tmp,
+                                   "--output_path", f"{tmp}/csvs", "--split_up", "36-12-0",
+                                   "--no_if_plot"], "yolo disk kmeans_csvs")
+        table = read_yolo_csv(f"{tmp}/csvs/train.csv")
+        scales = {(r.width, r.height): r.scale for r in read_yolo_csv(f"{tmp}/csvs/all.csv").rows}
+        text = open(cfg_src).read()
+        text = re.sub(r"^train_uri=.*$", f"train_uri={tmp}/csvs/train.csv", text, flags=re.M)
+        text = re.sub(r"^validate_uri=.*$", f"validate_uri={tmp}/csvs/validate.csv", text,
+                      flags=re.M)
+        cfg = f"{tmp}/yolo_baseline.cfg"
+        with open(cfg, "w") as f:
+            f.write(text)
+        spec = load_network_spec(cfg)
+        log(f"yolo disk anchors (h, w) {table.anchors}; scale by (W, H) {scales}; "
+            f"cfg {spec.net.width}x{spec.net.height}, {spec.net.num_classes} classes")
+        check(len(table.anchors) == 9 and [tuple(a) for a in spec.anchors] == table.anchors,
+              "yolo disk: the cfg does not read train.csv's 9 anchors")
+        check(sorted(scales) == sorted((w, h) for h, w, *_ in DISK_RES),
+              "yolo disk: not one scale per resolution")
+
+        # the host's feed rate beside the step's
+        ds = ImageLabelDataset(f"{tmp}/csvs/train.csv", tmp, spec.net.width, spec.net.height,
+                               augment_affine=True, augment_hsv=True, lr_flip=True,
+                               data_aug=True, blur=True, noise=True, contrast=True,
+                               sharpen=True)
+        ds.set_epoch(1)
+        t0 = time.perf_counter()
+        one, every = feed_rate(ds, 1, DISK_B), feed_rate(ds, cores, 6 * DISK_B)
+        timings["feed"] = time.perf_counter() - t0
+        log(f"yolo disk host feed (ImageLabelDataset, every host augmentation, "
+            f"{spec.net.width}² patches): {one!r} items/s at 1 worker, {every!r} at "
+            f"{cores} workers ({len(ds)} items an epoch) on {smi}")
+        t0 = time.perf_counter()
+        disk_step_times(spec, dev, smi)
+        timings["steps"] = time.perf_counter() - t0
+
+        os.chdir(tmp)  # the CLI writes logs/ where it runs
+        try:
+            base = ["--model_cfg", cfg, "--dataset_path", tmp, "--batch_size", str(DISK_B),
+                    "--num_workers", str(cores), "--lr", "0.0005"]
+            out = f"{tmp}/run"
+            t0 = time.perf_counter()
+            runs = {"2 epochs": run_cli(yolo_train.main, base + DISK_AUGS + [
+                "--num_epochs", "2", "--output_path", out], "yolo disk yolo_train 2 epochs")}
+            timings["train"] = time.perf_counter() - t0
+            params, state = darknet.init_params(spec, torch.Generator().manual_seed(3))
+            wp, ws, _ = darknet.load_darknet_weights(spec, params, state, f"{out}/2.weights")
+            model = darknet.TrainDarknet(spec, params, state).to(dev)
+            opt = make_optimizer(model.parameters(), "Adam", lr=1.0)
+            step, epoch = load_yolo_state(f"{out}/state_latest.pt", model, opt)
+            lp, ls = model.trees()
+            same = trees_equal(wp, lp) and trees_equal(ws, ls)
+            log(f"yolo disk: 2.weights and state_latest.pt (step {step}, epoch {epoch}) "
+                f"reloaded equal {same}")
+            check(same and epoch == 2 and step == 2 * -(-len(ds) // DISK_B),
+                  "yolo disk: the .weights and the state file differ")
+            del model, opt
+            t0 = time.perf_counter()
+            runs["resume"] = run_cli(yolo_train.main, base + DISK_AUGS + [
+                "--num_epochs", "3", "--output_path", out, "--resume"],
+                "yolo disk yolo_train --resume")
+            timings["resume"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            runs["evaluate"] = run_cli(yolo_train.main, base + [
+                "--evaluate", "--weights_path", f"{out}/3.weights", "--output_path",
+                f"{tmp}/eval"], "yolo disk yolo_train --evaluate")
+            timings["evaluate"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            runs["device_aug"] = run_cli(yolo_train.main, base + DISK_AUGS + [
+                "--num_epochs", "1", "--device_aug", "--preload_device", "--preload_num",
+                str(DISK_POOL), "--output_path", f"{tmp}/pool"],
+                "yolo disk yolo_train --device_aug")
+            timings["device_aug"] = time.perf_counter() - t0
+            logged = open(f"logs/{os.path.basename(cfg)[:-4]}.log").read()
+        finally:
+            os.chdir(cwd)
+            torch.backends.cudnn.benchmark = benchmark
+    for name, text in runs.items():
+        log_run(f"yolo disk {name}", text)
+        check(text.count("mAP: ") >= 1, f"yolo disk {name}: no mAP line")
+    epochs = {name: sorted({e for e, _, _ in train_lines(t)}) for name, t in runs.items()}
+    log(f"yolo disk epochs trained by run: {epochs}")
+    check(epochs["2 epochs"] == [1, 2] and epochs["resume"] == [3]
+          and "at epoch 2" in runs["resume"], "yolo disk: the resume did not go on at epoch 3")
+    check(epochs["evaluate"] == [] and "Model in train mode" not in runs["evaluate"],
+          "yolo disk: --evaluate trained")
+    check(f"Device pool: {DISK_POOL} samples" in runs["device_aug"]
+          and epochs["device_aug"] == [1],
+          "yolo disk: the device-aug epoch did not run from the pool")
+    check("mAP: " in logged, "yolo disk: the CLI's log file holds no mAP line")
+    t0 = time.perf_counter()
+    phase_yolo_train_agree(dev, device_aug=True)
+    timings["device_aug_agree"] = time.perf_counter() - t0
+    log(f"yolo disk seconds by part: "
+        f"{ {k: round(v, 1) for k, v in timings.items()} } on {smi}")
+
+
 def phase_yolo(dev, smi) -> None:
     """The four YOLO training phases, each timed; no K1-K5 wrapper may
     launch while YOLO trains (its path is cuDNN and plain PyTorch)."""
@@ -2067,6 +2434,13 @@ def phase_yolo(dev, smi) -> None:
     t0 = time.perf_counter()
     phase_yolo_driver(dev, smi)
     log(f"phase yolo_driver: {time.perf_counter() - t0:.1f} s")
+    before = training_launches()
+    t0 = time.perf_counter()
+    phase_yolo_disk(dev, smi)
+    log(f"phase yolo_disk: {time.perf_counter() - t0:.1f} s on {smi}")
+    after = training_launches()
+    log(f"K1-K5 launches while YOLO trained from disk: {after} (before: {before})")
+    check(after == before, "a K1-K5 kernel launched on the YOLO disk training path")
 
 
 def main() -> int:

@@ -2,23 +2,28 @@
 """Where a RektNet or YOLO training step spends its time on one CUDA card.
 
     python3 mit_driverless_cv_traininginfra_tpu_torch/tools/profile_train.py \
-        [--model rektnet|yolo] [--batches 32,128] [--steps 10] [--top 12]
+        [--model rektnet|yolo] [--batches 32,128] [--dtypes float32,bfloat16] \
+        [--size 416] [--stem] [--steps 10] [--top 12]
 
-For each batch and compute dtype (f32, bf16) it warms ``tools/bench_train.py``'s
+For each batch and compute dtype it warms ``tools/bench_train.py``'s
 step for 3 steps — RektNet: Adam, l1 soft-argmax + geometric loss, device
-targets, full width; YOLO: Adam, YOLOv3-416 one class, random frames
-with three boxes — then runs ``--steps`` steps under ``torch.profiler``
+targets, full width; YOLO: Adam, YOLOv3 one class at ``--size``², random
+frames with three boxes — then runs ``--steps`` steps under ``torch.profiler``
 and prints the wall time, the device's kernel time and idle share (1 −
 kernel time / wall), kernels per step, the host's operator calls per
 step and its time in calls that wait for the device (synchronize, copies
 to the host), device time by kind of kernel (the classifier of
 ``tools/profile_serving.py``) and the ``--top`` kernels. Every line
-carries the card's name and power limit (nvidia-smi).
+carries the card's name and power limit (nvidia-smi). ``--stem`` (YOLO)
+also profiles the stem alone — conv blocks 0-1 with their batch norm and
+leaky, forward and backward from the frames, as the step runs them — and
+prints its device time as a share of the step's.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -66,17 +71,38 @@ def rektnet_step(B: int, dtype: str, dev):
                                       compute_dtype=dtype, **cs.TRAIN_KW)
 
 
-def yolo_step(B: int, dtype: str, dev, size: int = 416):
+def yolo_model(size: int, dev):
     spec = flagship_spec(size, classes=1)
-    images, targets = yolo_inputs(np.random.default_rng(0), B, size, dev)
-    model = darknet.TrainDarknet(spec, *darknet.init_params(
+    return darknet.TrainDarknet(spec, *darknet.init_params(
         spec, torch.Generator().manual_seed(0))).to(dev)
+
+
+def yolo_step(B: int, dtype: str, dev, size: int = 416):
+    model = yolo_model(size, dev)
+    images, targets = yolo_inputs(np.random.default_rng(0), B, size, dev)
     opt = make_optimizer(model.parameters(), "Adam", lr=1e-4)
     return lambda: yolo_train_step(model, opt, images, targets, compute_dtype=dtype)
 
 
+def stem_step(B: int, dtype: str, dev, size: int = 416):
+    """Blocks 0-1 of the YOLO step alone: the two convolutions with their
+    batch norm (batch statistics) and leaky on the frames, and their
+    backward from a gradient of ones (no gradient into the frames)."""
+    model = yolo_model(size, dev)
+    images, _ = yolo_inputs(np.random.default_rng(0), B, size, dev)
+    conv = functools.partial(model._conv, train=True, dtype=getattr(torch, dtype))
+
+    def step():
+        out = model._walk(images.to(getattr(torch, dtype)), 2, conv)[0]
+        out.backward(torch.ones_like(out))
+
+    return step
+
+
 def profile_steps(make, B: int, dtype: str, steps: int, top: int, smi: str, dev,
-                  name: str = "train") -> None:
+                  name: str = "train") -> float:
+    """Profile ``steps`` steps of ``make(B, dtype, dev)``, print, and
+    return the device kernel time a step (ms)."""
     step = make(B, dtype, dev)
 
     for _ in range(3):
@@ -113,23 +139,35 @@ def profile_steps(make, B: int, dtype: str, steps: int, top: int, smi: str, dev,
         flush=True)
     for d, c, k in sorted(rows, reverse=True)[:top]:
         print(f"  {label} {d / steps:9.4f} ms/step  n {c:6d}  {k}")
+    return total / steps
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("rektnet", "yolo"), default="rektnet")
     ap.add_argument("--batches", default="32,128")
+    ap.add_argument("--dtypes", default="float32,bfloat16")
+    ap.add_argument("--size", type=int, default=416, help="YOLO frame size")
+    ap.add_argument("--stem", action="store_true",
+                    help="YOLO: also the stem's device time and share of the step")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
     smi = cs.phase_device()
     dev = torch.device("cuda:0")
     cs.phase_build()
-    make = yolo_step if args.model == "yolo" else rektnet_step
-    name = "yolo416" if args.model == "yolo" else "train"
+    yolo = args.model == "yolo"
+    make = functools.partial(yolo_step, size=args.size) if yolo else rektnet_step
+    name = f"yolo{args.size}" if yolo else "train"
     for B in (int(b) for b in args.batches.split(",")):
-        for dtype in ("float32", "bfloat16"):
-            profile_steps(make, B, dtype, args.steps, args.top, smi, dev, name)
+        for dtype in args.dtypes.split(","):
+            step_ms = profile_steps(make, B, dtype, args.steps, args.top, smi, dev, name)
+            if yolo and args.stem:
+                stem_ms = profile_steps(functools.partial(stem_step, size=args.size), B,
+                                        dtype, args.steps, 4, smi, dev, f"stem{args.size}")
+                print(f"{name} B={B} {dtype}: the stem (blocks 0-1, forward and "
+                      f"backward) {stem_ms!r} of the step's {step_ms!r} device ms "
+                      f"= {stem_ms / step_ms!r} on {smi}", flush=True)
     return 0
 
 

@@ -20,6 +20,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.cross_ratio_loss import (
     cross_ratio_loss,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.models.yolo_loss import yolo_loss
+from mit_driverless_cv_traininginfra_tpu_torch.ops import device_aug
 from mit_driverless_cv_traininginfra_tpu_torch.ops.heatmap import gaussian_heatmaps
 from mit_driverless_cv_traininginfra_tpu_torch.train.optim import optimizer_step
 
@@ -56,6 +57,29 @@ def yolo_train_step(model, opt, images, targets, xy_loss: float = 2.0,
     loss.backward()
     optimizer_step(opt)
     return loss.detach(), comps.detach()
+
+
+def yolo_train_step_device_aug(model, opt, images, labels_px, draws: dict,
+                               xy_loss: float = 2.0, wh_loss: float = 1.6,
+                               object_loss: float = 0.1,
+                               no_object_loss: float = 25.0,
+                               compute_dtype: str = "float32"):
+    """:func:`yolo_train_step` with the augmentation on the device in front
+    of it (the JAX package's ``yolo_train_step_device_aug``): ``images``
+    (B, H, W, C) as the dataset made them (``device_aug=True``: patched,
+    affine-warped on the host) and ``labels_px`` (B, T, 5) pixel-corner
+    labels, both on the model's device; ``draws`` from
+    ``ops.device_aug.sample_draws`` on that device. The batch is augmented
+    (``device_aug.apply``), its labels normalised to ``[c, cx, cy, w, h]``
+    with the zero rows kept, and then stepped as :func:`yolo_train_step`
+    steps. No host sync."""
+    _, H, W, _ = images.shape
+    images, labels_px = device_aug.apply(images, labels_px, draws)
+    targets = device_aug.pixel_labels_to_targets(labels_px, H, W)
+    return yolo_train_step(model, opt, images, targets, xy_loss=xy_loss,
+                           wh_loss=wh_loss, object_loss=object_loss,
+                           no_object_loss=no_object_loss,
+                           compute_dtype=compute_dtype)
 
 
 @torch.no_grad()

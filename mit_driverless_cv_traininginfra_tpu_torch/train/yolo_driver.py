@@ -1,37 +1,56 @@
-"""YOLO training loop (counterpart of the epoch loop of the JAX package's
+"""YOLO training driver (counterpart of the JAX package's
 ``train/yolo_driver.py``; reference ``CVC-YOLOv3/train.py``).
 
-Per epoch: StepLR at the top of the epoch (with an optional linear warmup
-over the first global steps), one ``yolo_train_step`` a batch with the
-reference's log line, and every ``checkpoint_interval`` epochs: the
-``.weights`` file, the full train state, the validation loss, the best
-loss into ``<log_dir>/result.txt`` (the sweep layer's score channel) and
-the validation mAP; early stop after ``val_tolerance`` checks without
-improvement past ``min_epochs``.
+:func:`main` is the reference's ``train.py main`` with the JAX driver's
+keyword surface: it builds the tile-and-scale datasets of the cfg's
+``train_uri``/``validate_uri`` CSVs (``data/yolo_dataset.py``), their
+loaders (or a device-resident pool, ``data/device_pool.py``), the
+:class:`TrainDarknet` from ``init_params`` or a ``.weights`` file, the
+optimizer, and runs :func:`train_yolo`.
 
-:func:`train_yolo` is fed loaders yielding ``(uris, images (B, H, W, 3),
-labels (B, T, 5))`` numpy batches (the JAX ``DataLoader``'s); the batches
-reach the card through ``data.loader.prefetch_to_device``. Not here yet:
-the disk dataset and the CLI (``main``), on-device augmentation, the
-device-resident pool, several devices, and the ONNX export at an early
-stop (which prints, as the JAX driver does without its export module,
-that it skips).
+:func:`train_yolo`, per epoch: StepLR at the top of the epoch (with an
+optional linear warmup over the first global steps), one train step a
+batch with the reference's log line, and every ``checkpoint_interval``
+epochs: the ``.weights`` file, the full train state, the validation loss,
+the best loss into ``<log_dir>/result.txt`` (the sweep layer's score
+channel) and the validation mAP; early stop after ``val_tolerance`` checks
+without improvement past ``min_epochs``. Loaders yield ``(uris, images
+(B, H, W, C), labels (B, T, 5))`` batches, numpy or (a pool's images)
+tensors on the device; numpy reaches the card through
+``data.loader.prefetch_to_device``. With ``device_aug`` the labels are
+pixel corners and the step augments on the device
+(``train.steps.yolo_train_step_device_aug``).
+
+Not here yet: the space-to-depth training stem (``packed_stem``), several
+devices (``n_devices``), the visualisation renders (``vis_batch``) and the
+ONNX export at an early stop (which prints, as the JAX driver does
+without its export module, that it skips).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
-from mit_driverless_cv_traininginfra_tpu_torch.data.loader import prefetch_to_device
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import load_network_spec
+from mit_driverless_cv_traininginfra_tpu_torch.data.device_pool import DevicePool
+from mit_driverless_cv_traininginfra_tpu_torch.data.loader import (
+    DataLoader,
+    prefetch_to_device,
+)
+from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_dataset import ImageLabelDataset
 from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
 from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import (
+    TrainDarknet,
+    init_params,
+    load_darknet_weights,
     save_darknet_weights,
 )
+from mit_driverless_cv_traininginfra_tpu_torch.ops.device_aug import sample_draws
 from mit_driverless_cv_traininginfra_tpu_torch.ops.metrics import (
     evaluate_image_batch,
 )
@@ -39,10 +58,15 @@ from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import (
     load_yolo_state,
     save_yolo_state,
 )
-from mit_driverless_cv_traininginfra_tpu_torch.train.optim import set_lr, step_lr
+from mit_driverless_cv_traininginfra_tpu_torch.train.optim import (
+    make_optimizer,
+    set_lr,
+    step_lr,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.train.steps import (
     yolo_eval_step,
     yolo_train_step,
+    yolo_train_step_device_aug,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.utils.logger import write_score_file
 
@@ -58,18 +82,24 @@ STATE_FILE = "state_latest.pt"  # the full train state; its epoch in .meta
 
 def _with_host_counts(batches):
     """Count each batch's targets on the host, before the copy to the card
-    (a count on the card would be a host read a step)."""
+    (a count on the card would be a host read a step). Images already on
+    the device (a pool's) pass through."""
     for uris, imgs, labels in batches:
         labels = np.asarray(labels, np.float32)
         n_t = float(((labels[:, :, 1:5] > 0).sum(axis=2) > 1).sum()) + 1e-12
-        yield uris, np.asarray(imgs, np.float32), labels, n_t
+        if not torch.is_tensor(imgs):
+            imgs = np.asarray(imgs, np.float32)
+        yield uris, imgs, labels, n_t
 
 
 def run_epoch(*, label_prefix: str, data_loader, model, opt, device,
               num_steps: int, step, epoch: int, loss_consts, optimize: bool,
-              compute_dtype: str = "float32", lr_warmup=None):
+              compute_dtype: str = "float32", lr_warmup=None,
+              aug_gen=None, aug_flags=None):
     """One pass over ``data_loader``, training or (``optimize=False``)
     evaluating. ``step`` is a one-element list, the global step count.
+    ``aug_gen`` (a ``torch.Generator`` on ``device``) turns on the
+    device-aug step, each batch's draws taken from it with ``aug_flags``.
     Returns ``(epoch_losses[7], epoch_time_total, epoch_num_targets)``."""
     print(f"Model in {label_prefix} mode")
     epoch_losses = [0.0] * 7
@@ -90,7 +120,13 @@ def run_epoch(*, label_prefix: str, data_loader, model, opt, device,
                 set_lr(opt, epoch_lr * (step[0] + 1) / warm_n)
             elif step[0] == warm_n:
                 set_lr(opt, epoch_lr)
-        if optimize:
+        if optimize and aug_gen is not None:
+            draws = sample_draws(aug_gen, *imgs.shape, **(aug_flags or {}))
+            loss, comps = yolo_train_step_device_aug(
+                model, opt, imgs, targets, draws, xy_loss=xy, wh_loss=wh,
+                object_loss=obj, no_object_loss=noobj,
+                compute_dtype=compute_dtype)
+        elif optimize:
             loss, comps = yolo_train_step(
                 model, opt, imgs, targets, xy_loss=xy, wh_loss=wh,
                 object_loss=obj, no_object_loss=noobj,
@@ -154,7 +190,7 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
                val_tolerance: int = 3, min_epochs: int = 3,
                mixed_precision: bool = False, resume: bool = False,
                evaluate: bool = False, log_dir: str = "logs", device_aug: bool = False,
-               n_devices=None) -> float:
+               aug_flags=None, seed: int = 17, train_dataset=None) -> float:
     """The reference's epoch loop (the JAX ``yolo_driver.main`` after it
     has built its loaders) on ``model``, a :class:`TrainDarknet` on
     ``device`` (the card unless the caller asks for the CPU; a missing
@@ -164,15 +200,12 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
     Returns the best validation loss (999.0 before any check).
 
     Writes ``<output_path>/<epoch>.weights`` and ``STATE_FILE`` (with its
-    ``.meta``) at each check. ``device_aug`` and ``n_devices`` are the JAX
-    driver's on-device augmentation and mesh, which the port does not
-    have yet: they raise rather than be ignored."""
-    if device_aug:
-        raise NotImplementedError("device_aug: on-device augmentation is not "
-                                  "ported yet")
-    if n_devices not in (None, 1):
-        raise NotImplementedError("n_devices: training on several devices is "
-                                  "not ported yet")
+    ``.meta``) at each check. ``device_aug``: the loader's labels are pixel
+    corners and each step augments on the device, its draws from a
+    generator on ``device`` seeded ``seed · 7919 + epoch`` each epoch, with
+    ``aug_flags`` (``lr_flip``, ``jitter``, ``noise``; the step's defaults
+    when None). ``train_dataset``, when given, has ``set_epoch(epoch)``
+    called at the top of each epoch (fresh per-item draws)."""
     device = resolve_device(device)
     spec = model.spec
     os.makedirs(output_path, exist_ok=True)
@@ -189,13 +222,20 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
     epoch = start_epoch
     while epoch < num_epochs and step[0] < num_steps and not evaluate:
         epoch += 1
+        if train_dataset is not None:
+            # fresh draws each epoch; validation keeps epoch 0, so its
+            # random patch picks stay the same between checks
+            train_dataset.set_epoch(epoch)
         epoch_lr = step_lr(lr, gamma, epoch)  # StepLR at the top of the epoch
         set_lr(opt, epoch_lr)
+        aug_gen = (torch.Generator(device=device).manual_seed(seed * 7919 + epoch)
+                   if device_aug else None)
         run_epoch(label_prefix="train", data_loader=train_loader, model=model,
                   opt=opt, device=device, num_steps=num_steps, step=step,
                   epoch=epoch, loss_consts=loss_consts, optimize=True,
                   compute_dtype="bfloat16" if mixed_precision else "float32",
-                  lr_warmup=(lr_warmup_steps, epoch_lr) if lr_warmup_steps else None)
+                  lr_warmup=(lr_warmup_steps, epoch_lr) if lr_warmup_steps else None,
+                  aug_gen=aug_gen, aug_flags=aug_flags)
         print("Completed epoch: ", epoch)
 
         if epoch % checkpoint_interval == 0 or epoch == num_epochs or step[0] >= num_steps:
@@ -228,3 +268,105 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
     if evaluate:
         validate_map(data_loader=val_loader, model=model, device=device)
     return val_loss
+
+
+def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
+         dataset_path: str, batch_size: int = 8, optimizer_pick: str = "Adam",
+         num_epochs: int = 100, num_steps: int = 10**9,
+         checkpoint_interval: int = 1, lr: float = 1e-3, momentum: float = 0.9,
+         gamma: float = 0.95, weight_decay: float = 0.0,
+         xy_loss: float = 2.0, wh_loss: float = 1.6,
+         no_object_loss: float = 25.0, object_loss: float = 0.1,
+         vanilla_anchor: bool = False, ts: bool = True,
+         augment_affine: bool = False, augment_hsv: bool = False,
+         lr_flip: bool = False, ud_flip: bool = False, data_aug: bool = False,
+         blur: bool = False, salt: bool = False, noise: bool = False,
+         contrast: bool = False, sharpen: bool = False,
+         val_tolerance: int = 3, min_epochs: int = 3,
+         vis_batch: int = 0, resume: bool = False,
+         mixed_precision="auto", device_aug: bool = False,
+         packed_stem: bool = False,
+         grad_clip: float = 0.0, lr_warmup_steps: int = 0,
+         val_batch_size: Optional[int] = None,
+         preload_device: bool = False, preload_num: Optional[int] = None,
+         preload_budget_gb: float = 6.0,
+         debug_mode: bool = False, evaluate: bool = False,
+         num_workers: int = 8, n_devices: Optional[int] = None,
+         seed: int = 17, device="cuda") -> float:
+    """The JAX driver's ``main`` on ``device`` (the card unless the caller
+    asks for the CPU; a missing card raises). ``mixed_precision="auto"``
+    is bf16 compute on the card and f32 on the CPU. ``preload_device``
+    trains from a :class:`DevicePool` of the training set (bf16 under
+    mixed precision). The initial weights come from ``init_params`` with
+    ``torch.Generator().manual_seed(seed)``, or from ``weights_path``.
+    ``packed_stem`` and several devices raise: not ported. Returns the
+    best validation loss."""
+    if packed_stem:
+        raise NotImplementedError(
+            "packed_stem: the space-to-depth training stem is not ported "
+            "(ROADMAP Queue 2 item 5, training)")
+    if n_devices not in (None, 1):
+        raise NotImplementedError(
+            "n_devices: training on several devices is not ported "
+            "(ROADMAP Queue 1 item 8, multi-device)")
+    dev = resolve_device(device)
+    spec = load_network_spec(model_cfg, vanilla_anchor=vanilla_anchor)
+    os.makedirs(output_path, exist_ok=True)
+    os.makedirs("logs", exist_ok=True)
+    if mixed_precision == "auto":
+        mixed_precision = dev.type == "cuda"
+
+    common = dict(dataset_path=dataset_path, width=spec.net.width,
+                  height=spec.net.height, bw=spec.net.channels == 1, ts=ts,
+                  debug_mode=debug_mode, seed=seed)
+    train_ds = ImageLabelDataset(
+        spec.net.train_uri, num_images=spec.net.num_train_images,
+        augment_affine=augment_affine, augment_hsv=augment_hsv,
+        lr_flip=lr_flip, ud_flip=ud_flip, data_aug=data_aug, blur=blur,
+        salt=salt, noise=noise, contrast=contrast, sharpen=sharpen,
+        vis_batch=vis_batch, device_aug=device_aug, **common)
+    val_ds = ImageLabelDataset(
+        spec.net.validate_uri, num_images=spec.net.num_validate_images, **common)
+    bs = 1 if debug_mode else batch_size
+    # validation runs an f32 forward beside the train state (and any pool),
+    # so it may need a smaller batch than training
+    val_bs = 1 if debug_mode else (val_batch_size or batch_size)
+    train_loader = DataLoader(train_ds, bs, shuffle=not debug_mode,
+                              num_workers=num_workers, seed=seed)
+    val_loader = DataLoader(val_ds, val_bs, shuffle=False,
+                            num_workers=num_workers)
+    print("Num train images: ", len(train_ds))
+    print("Num validate images: ", len(val_ds))
+
+    if preload_device and not debug_mode:
+        pool = DevicePool.from_dataset(
+            train_ds, num=preload_num, device=dev,
+            budget_bytes=preload_budget_gb * 1e9,
+            dtype=torch.bfloat16 if mixed_precision else torch.float32,
+            num_workers=num_workers)
+        print(f"Device pool: {len(pool)} samples, "
+              f"{pool.nbytes / 1e9:.2f} GB in HBM")
+        train_loader = pool.loader(bs, shuffle=True, seed=seed)
+
+    params, state = init_params(spec, torch.Generator().manual_seed(seed))
+    if weights_path:
+        params, state, _ = load_darknet_weights(spec, params, state, weights_path)
+    model = TrainDarknet(spec, params, state).to(dev)
+    opt = make_optimizer(model.parameters(), optimizer_pick, lr=lr,
+                         momentum=momentum, weight_decay=weight_decay,
+                         grad_clip=grad_clip)
+    return train_yolo(
+        model, opt, train_loader, val_loader, output_path=output_path,
+        device=dev, num_epochs=num_epochs, num_steps=num_steps,
+        checkpoint_interval=checkpoint_interval, lr=lr, gamma=gamma,
+        lr_warmup_steps=lr_warmup_steps, xy_loss=xy_loss, wh_loss=wh_loss,
+        object_loss=object_loss, no_object_loss=no_object_loss,
+        val_tolerance=val_tolerance, min_epochs=min_epochs,
+        mixed_precision=bool(mixed_precision), resume=resume,
+        evaluate=evaluate, log_dir="logs", device_aug=device_aug,
+        # the host path's flag semantics on the device: data_aug turns on
+        # the jitter (its affine runs on the host); lr_flip and noise need
+        # their own flags in both modes
+        aug_flags=dict(lr_flip=bool(lr_flip), jitter=bool(augment_hsv or data_aug),
+                       noise=bool(noise)),
+        seed=seed, train_dataset=train_ds)

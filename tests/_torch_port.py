@@ -208,3 +208,42 @@ def int8_models(specs, frames, seed: int = 0, net_size: int = 16,
         convert.quantized_from_jax(to_numpy(entry_q)))
     rekt = quantize.Int8RektNet(convert.quantized_from_jax(to_numpy(rekt_q)))
     return (jspec, yolo_q, entry_q, rekt_q), (yolo, rekt)
+
+
+def write_cone_dataset(directory, rng, sizes, per_size: int, tile: int,
+                       min_h: int = 6, max_h: int = 30, empty: int = 0):
+    """Cone scenes of each (height, width) in ``sizes``, composed of
+    ``tile``² ``data/synthetic.cone_scene`` tiles, written as PNG files to
+    ``directory`` with an ``all.csv`` of ``[x, y, h, w]`` boxes in the
+    reference layout (``empty`` more scenes of the first size with no
+    box). Returns the CSV's path."""
+    from PIL import Image
+
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
+    from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_csv import (
+        YoloCsvRow,
+        write_yolo_csv,
+    )
+
+    rows = []
+    jobs = [(h, w) for h, w in sizes for _ in range(per_size)] + [sizes[0]] * empty
+    for k, (h, w) in enumerate(jobs):
+        img = np.zeros((h, w, 3), np.float32)
+        boxes = []
+        for y0 in range(0, h, tile):
+            for x0 in range(0, w, tile):
+                t, b = synthetic.cone_scene(rng, size=tile, min_h=min_h, max_h=max_h)
+                img[y0:y0 + tile, x0:x0 + tile] = t[:h - y0, :w - x0]
+                for x1, y1, x2, y2 in b:
+                    if x2 + x0 < w and y2 + y0 < h:
+                        boxes.append([x1 + x0, y1 + y0, y2 - y1, x2 - x1])
+        if k >= len(jobs) - empty:
+            boxes = []
+        name = f"scene_{k:03d}.png"
+        Image.fromarray((img * 255).round().astype(np.uint8)).save(
+            os.path.join(str(directory), name))
+        rows.append(YoloCsvRow(image=name, width=w, height=h, scale=1.0,
+                               boxes=np.asarray(boxes, np.float32).reshape(-1, 4)))
+    path = os.path.join(str(directory), "all.csv")
+    write_yolo_csv(path, rows)
+    return path

@@ -8,7 +8,11 @@ step and a YOLO training step (a ``TrainDarknet``) and validates it,
 runs the plain residual stage and the plain routes of probes on each
 of the four probe kernels; then neither
 ``jax`` nor any ``mit_driverless_cv_traininginfra_tpu`` module may be in
-``sys.modules``. An AST walk over the port's files and ``chip_smoke.py``
+``sys.modules``. Another fresh interpreter reads items of the YOLO disk
+dataset with every host augmentation (``.npy`` frames, k-means CSVs) and
+takes a device-aug step from a device pool, with neither ``jax`` nor PIL
+nor OpenCV in ``sys.modules``. An AST walk over the port's files and
+``chip_smoke.py``
 finds no import of the JAX package and no path into its directory."""
 
 import ast
@@ -129,7 +133,10 @@ for mod in ("ops.tail_conv", "ops.window_resample", "ops.int8_contract",
             "ops.strided_map", "probes.mosaic", "probes.crop", "probes.tail_conv1",
             "probes.run", "cli.serve", "infer.microbatch", "infer.detect",
             "ops.nms", "data.decode", "utils.logger", "models.yolo_loss",
-            "ops.metrics", "data.loader", "train.yolo_driver", "utils.profiling"):
+            "ops.metrics", "data.loader", "train.yolo_driver", "utils.profiling",
+            "data.uri", "data.yolo_csv", "data.raster", "data.augment",
+            "data.yolo_dataset", "data.kmeans_anchors", "data.device_pool",
+            "ops.patches", "ops.device_aug", "cli.yolo_train", "cli.kmeans_csvs"):
     assert "mit_driverless_cv_traininginfra_tpu_torch." + mod in sys.modules, mod
 
 assert "jax" not in sys.modules, "the port imported jax"
@@ -148,6 +155,66 @@ def test_port_runs_without_importing_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "no-jax ok" in proc.stdout
+
+
+DISK_SCRIPT = r"""
+import contextlib, io, os, sys, tempfile
+import numpy as np, torch
+from mit_driverless_cv_traininginfra_tpu_torch.cli import kmeans_csvs
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import load_network_spec
+from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
+from mit_driverless_cv_traininginfra_tpu_torch.data.device_pool import DevicePool
+from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_csv import YoloCsvRow, write_yolo_csv
+from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_dataset import ImageLabelDataset
+from mit_driverless_cv_traininginfra_tpu_torch.models import darknet
+from mit_driverless_cv_traininginfra_tpu_torch.ops.device_aug import sample_draws
+from mit_driverless_cv_traininginfra_tpu_torch.train import optim, steps
+
+rng = np.random.default_rng(0)
+with tempfile.TemporaryDirectory() as tmp:
+    rows = []
+    for k in range(6):
+        img, boxes = synthetic.cone_scene(rng, size=96, min_h=8, max_h=40)
+        np.save(f"{tmp}/s{k}.npy", (img * 255).astype(np.uint8))
+        xywh = np.stack([boxes[:, 0], boxes[:, 1], boxes[:, 3] - boxes[:, 1],
+                         boxes[:, 2] - boxes[:, 0]], 1)
+        rows.append(YoloCsvRow(f"s{k}.npy", 96, 96, 1.0, xywh))
+    write_yolo_csv(f"{tmp}/all.csv", rows)
+    with contextlib.redirect_stdout(io.StringIO()):
+        kmeans_csvs.main(["--input_csvs", f"{tmp}/all.csv", "--dataset_path", tmp,
+                          "--output_path", tmp, "--num_clst", "4", "--split_up", "4-2-0",
+                          "--no_if_plot"])
+    kw = dict(augment_affine=True, augment_hsv=True, lr_flip=True, data_aug=True,
+              blur=True, noise=True, contrast=True, sharpen=True)
+    ds = ImageLabelDataset(f"{tmp}/train.csv", tmp, 64, 64, **kw)
+    for i in range(len(ds)):
+        uri, img, labels = ds[i]
+        assert img.shape == (64, 64, 3) and np.isfinite(img).all(), img.shape
+    pool = DevicePool.from_dataset(ImageLabelDataset(f"{tmp}/train.csv", tmp, 64, 64,
+                                                     device_aug=True, augment_affine=True),
+                                   device="cpu", dtype=torch.bfloat16)
+    _, imgs, labels = next(iter(pool.loader(2, seed=1)))
+    spec = load_network_spec("tests/fixtures/tiny_test.cfg", vanilla_anchor=True)
+    model = darknet.TrainDarknet(spec, *darknet.init_params(spec, torch.Generator().manual_seed(0)))
+    opt = optim.make_optimizer(model.parameters(), "Adam", lr=1e-3)
+    draws = sample_draws(torch.Generator().manual_seed(2), *imgs.shape, noise=True)
+    loss, comps = steps.yolo_train_step_device_aug(model, opt, imgs, torch.from_numpy(labels),
+                                                   draws, compute_dtype="bfloat16")
+    assert torch.isfinite(loss) and comps.shape == (6,)
+found = [m for m in sys.modules if m.split(".")[0] in ("jax", "PIL", "cv2")
+         or m.startswith("mit_driverless_cv_traininginfra_tpu.")]
+assert not found, found
+print("no-jax-pil-cv2 ok")
+"""
+
+
+def test_disk_dataset_and_device_aug_step_need_no_jax_pil_or_cv2():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", DISK_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "no-jax-pil-cv2 ok" in proc.stdout
 
 
 # a file:line label of a TPU kernel (chip_smoke.py's "replaces" field) is a
