@@ -94,7 +94,23 @@ synthetic scenes, and checks its hand-written CUDA kernels:
    ``.weights`` and state files reloaded equal), a resume for the third,
    an ``--evaluate`` run and a ``--device_aug --preload_device`` epoch
    (finite losses, an mAP line each), the device-aug f32 step card vs CPU
-   and against float64; no K1-K5 wrapper count moves.
+   and against float64; no K1-K5 wrapper count moves;
+12. RektNet training from disk (``phase_rektnet_disk``, each part's seconds
+   printed) at full width: the port's ``tools/make_synth_dataset.py``
+   writes 512 training and 64 validation crops of 64-160 px as .npy, the
+   host feed of ``ConeDataset`` (items/s at 1 worker and at every core)
+   beside the B=32 bf16 step's crops/s, ``cli/rektnet_train`` for 2 epochs
+   (K2's forward launches once a batch, 38, and its backward once a step,
+   32), its ``.pt`` reloaded equal to the resume state, a ``--resume``
+   that runs epoch 3 only, ``--evaluate_mode`` and ``--vis_upload_data``
+   on 8 crops (8 well-formed JPEGs);
+13. the evaluation entry points (``phase_eval_cli``) on what phases 11 and
+   12 trained: ``cli/rektnet_detect`` card vs ``--device cpu`` (keypoints
+   within 1e-4, K2 once), ``cli/pipeline`` on two 1280×960 frames at
+   ``model_cfg/yolo_baseline.cfg`` card vs CPU (masks equal at a
+   gap-picked threshold, K1, K2 and K3 once a frame; the boxes' and the
+   letterboxed input's differences logged), ``cli/yolo_detect``, ``cli/yolo_validate`` and the tools
+   ``eval_weights`` and ``eval_rektnet_weights`` (their JSON lines).
 
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
@@ -1701,7 +1717,7 @@ def phase_driver(dev) -> None:
             lr=1e-3, include_geo=True, geo_loss_gamma_horz=0.05,
             geo_loss_gamma_vert=0.05, mixed_precision=True, device_targets=True,
             checkpoint_interval=2, log_dir=tmp)
-        pts_files = glob.glob(f"{tmp}/*.pt")
+        pts_files = glob.glob(f"{tmp}/*_loss_*.pt")
         check(len(pts_files) == 1, f"driver: expected one .pt, got {pts_files}")
         model2 = KeypointNet(*rekt_trees(3)).to(dev)
         opt2 = make_optimizer(model2.parameters(), "Adam", lr=1.0)
@@ -2126,25 +2142,6 @@ DISK_AUGS = ["--augment_affine", "--augment_hsv", "--augment_lr_flip", "--data_a
              "--augment_noise", "--augment_blur", "--augment_contrast", "--augment_sharpen"]
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """An 8-bit RGB PNG by the standard library: filter 0 on each row,
-    one zlib stream."""
-    import struct
-    import zlib
-
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
-
-
 def render_disk_dataset(root: str) -> str:
     """DISK_SCENES cone scenes, half at each of DISK_RES, each from its own
     seed, written as .npy and PNG files; ``all.csv`` names the PNGs when the
@@ -2152,7 +2149,7 @@ def render_disk_dataset(root: str) -> str:
     import os
     from concurrent.futures import ThreadPoolExecutor
 
-    from mit_driverless_cv_traininginfra_tpu_torch.data import decode, synthetic
+    from mit_driverless_cv_traininginfra_tpu_torch.data import decode, encode, synthetic
     from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_csv import (
         YoloCsvRow,
         write_yolo_csv,
@@ -2170,7 +2167,8 @@ def render_disk_dataset(root: str) -> str:
                 boxes += [[x1 + x0, y1 + y0, y2 - y1, x2 - x1] for x1, y1, x2, y2 in b]
         rgb = (img * 255).round().astype(np.uint8)
         np.save(f"{root}/scene_{k:03d}.npy", rgb)
-        write_png(f"{root}/scene_{k:03d}.png", rgb)
+        with open(f"{root}/scene_{k:03d}.png", "wb") as f:
+            f.write(encode.encode_png(rgb))
         return w, h, np.asarray(boxes, np.float32)
 
     with ThreadPoolExecutor(os.cpu_count()) as ex:
@@ -2282,7 +2280,7 @@ def disk_step_times(spec, dev, smi) -> None:
         del model, opt
 
 
-def phase_yolo_disk(dev, smi) -> None:
+def phase_yolo_disk(dev, smi, root: str) -> dict:
     """YOLO training from disk at the repository's own training cfg
     (``model_cfg/yolo_baseline.cfg``: YOLOv3, 80 classes, 800²): cone scenes
     written to disk, ``cli/kmeans_csvs`` → CSVs with 9 anchors and a scale
@@ -2291,9 +2289,10 @@ def phase_yolo_disk(dev, smi) -> None:
     for a third, an ``--evaluate`` run, and a ``--device_aug
     --preload_device`` epoch; the ``.weights`` and state files reloaded
     equal; the host feed rate beside the step's; the device-aug step card
-    vs CPU."""
+    vs CPU. Works in ``root``; returns the trained run's ``cfg``,
+    ``weights`` (epoch 3) and ``frames`` (two 1280×960 scenes as .npy)."""
+    import contextlib
     import os
-    import tempfile
 
     from mit_driverless_cv_traininginfra_tpu_torch.cli import kmeans_csvs, yolo_train
     from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
@@ -2317,7 +2316,7 @@ def phase_yolo_disk(dev, smi) -> None:
     # autotuner on, which would time each new 800² shape here
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = False
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(root) as tmp:
         t0 = time.perf_counter()
         all_csv = render_disk_dataset(tmp)
         timings["render"] = time.perf_counter() - t0
@@ -2416,11 +2415,14 @@ def phase_yolo_disk(dev, smi) -> None:
     timings["device_aug_agree"] = time.perf_counter() - t0
     log(f"yolo disk seconds by part: "
         f"{ {k: round(v, 1) for k, v in timings.items()} } on {smi}")
+    return {"cfg": cfg, "weights": f"{root}/run/3.weights",
+            "frames": [f"{root}/scene_{k:03d}.npy" for k in (0, 2)]}
 
 
-def phase_yolo(dev, smi) -> None:
+def phase_yolo(dev, smi, root: str) -> dict:
     """The four YOLO training phases, each timed; no K1-K5 wrapper may
-    launch while YOLO trains (its path is cuDNN and plain PyTorch)."""
+    launch while YOLO trains (its path is cuDNN and plain PyTorch).
+    Returns ``phase_yolo_disk``'s trained run (in ``root``)."""
     before = training_launches()
     for name, fn in (("yolo_targets", lambda: phase_yolo_targets(dev)),
                      ("yolo_train_agree", lambda: phase_yolo_train_agree(dev)),
@@ -2436,11 +2438,351 @@ def phase_yolo(dev, smi) -> None:
     log(f"phase yolo_driver: {time.perf_counter() - t0:.1f} s")
     before = training_launches()
     t0 = time.perf_counter()
-    phase_yolo_disk(dev, smi)
+    run = phase_yolo_disk(dev, smi, root)
     log(f"phase yolo_disk: {time.perf_counter() - t0:.1f} s on {smi}")
     after = training_launches()
     log(f"K1-K5 launches while YOLO trained from disk: {after} (before: {before})")
     check(after == before, "a K1-K5 kernel launched on the YOLO disk training path")
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phase 12-13: RektNet from disk, the evaluation CLIs and tools
+# ---------------------------------------------------------------------------
+
+RK_TRAIN, RK_VAL = 512, 64  # crops of 64-160 px, written as .npy
+RK_B = 32
+# cli/pipeline card vs CPU, f32, model space: boxes and keypoints over the
+# box's larger side (the 3-epoch detector's boxes reach ~5e4 px), scores;
+# about 10x the readings on an H100 (7.43e-6, 4.20e-6, 1.26e-4)
+PIPELINE_BOUNDS = {"box_rel": 1e-4, "score": 5e-5, "kpt_rel": 1e-3}
+
+
+def port_tool(name: str):
+    """A script of the port's ``tools/`` as a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "mit_driverless_cv_traininginfra_tpu_torch", "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"port_tools_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def k2_counts() -> dict:
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
+        fused_softargmax,
+        softargmax_bwd,
+    )
+
+    return {"softargmax": fused_softargmax.launches, "softargmax_bwd": softargmax_bwd.launches}
+
+
+def zero_counts() -> None:
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import softargmax_bwd
+
+    for fn in list(kernel_wrappers().values()) + [softargmax_bwd]:
+        fn.launches = 0
+
+
+def rektnet_feed(dev, root: str, smi: str, ratio: float) -> None:
+    """``ConeDataset`` items a second (host heatmaps, as the CLI trains)
+    through ``DataLoader`` at 1 worker and at every core, beside the
+    B=32 bf16 step's crops a second on the card."""
+    import contextlib
+    import io
+    import os
+
+    from mit_driverless_cv_traininginfra_tpu_torch.data.loader import DataLoader
+    from mit_driverless_cv_traininginfra_tpu_torch.data.rektnet_data import (
+        ConeDataset,
+        collate_cones,
+        load_train_csv_dataset,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import KeypointNet
+    from mit_driverless_cv_traininginfra_tpu_torch.train.optim import make_optimizer
+    from mit_driverless_cv_traininginfra_tpu_torch.train.steps import rektnet_train_step
+
+    cores = os.cpu_count()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ti, tl, _, _ = load_train_csv_dataset(f"{root}/rektnet_label.csv", ratio,
+                                              dataset_path=f"{root}/images")
+    rates = {}
+    for workers, n in ((1, 64), (cores, 256)):
+        ds = ConeDataset(ti[:n], tl[:n], f"{root}/images")
+        t0 = time.perf_counter()
+        batches = list(DataLoader(ds, RK_B, shuffle=False, num_workers=workers,
+                                  collate=collate_cones))
+        rates[workers] = n / (time.perf_counter() - t0)
+    imgs, hms, pts = (torch.from_numpy(a).to(dev) for a in batches[0][:3])
+    model = KeypointNet(*rekt_trees(4)).to(dev)
+    opt = make_optimizer(model.parameters(), "Adam", lr=1e-3)
+    kw = dict(loss_type="l1_softargmax", include_geo=True, compute_dtype="bfloat16")
+    rektnet_train_step(model, opt, imgs, hms, pts, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        rektnet_train_step(model, opt, imgs, hms, pts, **kw)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 100
+    log(f"rektnet disk host feed (ConeDataset, host heatmaps, .npy crops of 64-160 px): "
+        f"{rates[1]!r} items/s at 1 worker, {rates[cores]!r} at {cores} workers; the B={RK_B} "
+        f"bf16 step {step_ms!r} ms = {RK_B * 1e3 / step_ms!r} crops/s on {smi}")
+
+
+def phase_rektnet_disk(dev, smi, root: str) -> str:
+    """RektNet training from disk at full width (net_size 16, 80², 7
+    keypoints, B=32): the port's dataset tool writes 512 training and 64
+    validation crops as .npy; the host feed beside the step; ``cli/
+    rektnet_train`` for 2 epochs on the card (mixed precision ``auto``),
+    its ``.pt`` reloaded equal with the Adam state of 2 epochs, K2's
+    forward and backward counted over the run; a ``--resume`` from that
+    ``.pt`` that runs epoch 3 only;
+    ``--evaluate_mode``; ``--vis_upload_data`` on 8 crops (JPEG markers).
+    Returns the trained ``.pt``."""
+    import glob
+    import json
+    import os
+
+    from mit_driverless_cv_traininginfra_tpu_torch.cli import rektnet_train
+    from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import KeypointNet
+    from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import load_rektnet_pt
+    from mit_driverless_cv_traininginfra_tpu_torch.train.optim import make_optimizer
+
+    rk = f"{root}/rk"
+    timings = {}
+    t0 = time.perf_counter()
+    run_cli(port_tool("make_synth_dataset").main,
+            ["--out", rk, "--family", "rektnet", "--train", str(RK_TRAIN), "--val", str(RK_VAL),
+             "--format", "npy"], "rektnet disk make_synth_dataset")
+    timings["render"] = time.perf_counter() - t0
+    ratio = json.load(open(f"{rk}/meta.json"))["validation_ratio"]
+    t0 = time.perf_counter()
+    rektnet_feed(dev, rk, smi, ratio)
+    timings["feed"] = time.perf_counter() - t0
+
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLI writes logs/ where it runs
+    try:
+        base = ["--train_dataset_uri", f"{rk}/rektnet_label.csv", "--dataset_path",
+                f"{rk}/images", "--validation_ratio", repr(ratio), "--batch_size", str(RK_B),
+                "--lr", "1e-3", "--checkpoint_interval", "2", "--num_workers", "1"]
+        out = f"{rk}/run"
+        zero_counts()
+        t0 = time.perf_counter()
+        text = run_cli(rektnet_train.main, base + ["--num_epochs", "2", "--output_path", out],
+                       "rektnet disk rektnet_train 2 epochs")
+        timings["train"] = time.perf_counter() - t0
+        counts = k2_counts()
+        steps = 2 * -(-(RK_TRAIN) // RK_B)
+        evals = 3 * -(-RK_VAL // RK_B)  # two validations and the closing distances
+        log(f"rektnet disk: K2 launches over the 2 epochs {counts} ({steps} train steps, "
+            f"{evals} eval batches)")
+        check(counts == {"softargmax": steps + evals, "softargmax_bwd": steps},
+              "rektnet disk: K2's launches do not follow the steps")
+        losses = re.findall(r"Training: MSE/Geometric/Total Loss: \S+/\S+/(\S+)", text)
+        log(f"rektnet disk: training Total by epoch {losses}; "
+            + "; ".join(l.strip() for l in text.splitlines() if "Validation:" in l
+                        or "Total distance" in l))
+        check(len(losses) == 2 and all(math.isfinite(float(v)) for v in losses),
+              "rektnet disk: the two epochs did not train")
+        pt = glob.glob(f"{out}/1_loss_*.pt")
+        check(len(pt) == 1, f"rektnet disk: expected one .pt, got {pt}")
+        a = KeypointNet(*rekt_trees(5))
+        opt = make_optimizer(a.parameters(), "Adam", lr=1.0)
+        epoch = load_rektnet_pt(pt[0], a, opt)
+        saved = torch.load(pt[0], map_location="cpu", weights_only=True)["model"]
+        same = all(torch.equal(v, saved[k]) for k, v in a.state_dict().items())
+        adam_steps = {int(st["step"]) for st in opt.state.values()}
+        lr = opt.param_groups[0]["lr"]
+        log(f"rektnet disk: {os.path.basename(pt[0])} (epoch {epoch}) reloaded equal {same}; "
+            f"Adam steps {adam_steps}, lr {lr!r}")
+        check(same and epoch == 1 and adam_steps == {steps}
+              and abs(lr - 1e-3 * 0.999 ** 2) <= 1e-15,
+              "rektnet disk: the .pt does not hold the model and Adam of 2 epochs")
+        t0 = time.perf_counter()
+        text = run_cli(rektnet_train.main, base + ["--num_epochs", "3", "--output_path", out,
+                                                   "--resume"], "rektnet disk --resume")
+        timings["resume"] = time.perf_counter() - t0
+        check("at epoch 2" in text and re.findall(r"^EPOCH (\d+)", text, re.M) == ["2"],
+              "rektnet disk: the resume did not run epoch 3 only")
+        t0 = time.perf_counter()
+        text = run_cli(rektnet_train.main, base + ["--evaluate_mode", "--checkpoint_path",
+                                                   pt[0], "--output_path", f"{rk}/eval"],
+                       "rektnet disk --evaluate_mode")
+        timings["evaluate"] = time.perf_counter() - t0
+        check("EPOCH" not in text and "Total distance error is" in text,
+              "rektnet disk: --evaluate_mode trained")
+        with open(f"{rk}/rektnet_label.csv") as f:
+            lines = f.read().splitlines()
+        with open(f"{rk}/vis8.csv", "w") as f:  # the header, 2 validation and 8 training rows
+            f.write("\n".join(lines[:1] + lines[1:3] + lines[1 + RK_VAL:9 + RK_VAL]) + "\n")
+        t0 = time.perf_counter()
+        text = run_cli(rektnet_train.main, [
+            "--train_dataset_uri", f"{rk}/vis8.csv", "--dataset_path", f"{rk}/images",
+            "--validation_ratio", "0.25", "--vis_upload_data", "--output_path", f"{rk}/vis"],
+            "rektnet disk --vis_upload_data")
+        timings["vis"] = time.perf_counter() - t0
+        files = sorted(glob.glob(f"{rk}/vis/visualization/*"))
+        good = [open(p, "rb").read() for p in files]
+        good = sum(d[:2] == b"\xff\xd8" and d[-2:] == b"\xff\xd9" for d in good)
+        log(f"rektnet disk --vis_upload_data: {len(files)} renders, {good} well-formed JPEGs")
+        check("visualized 8 dataset images" in text and len(files) == good == 8,
+              "rektnet disk: the dataset render is not 8 JPEGs")
+    finally:
+        os.chdir(cwd)
+    log(f"rektnet disk seconds by part: "
+        f"{ {k: round(v, 1) for k, v in timings.items()} } on {smi}")
+    return pt[0]
+
+
+def phase_eval_cli(dev, smi, root: str, yolo_run: dict, rekt_pt: str) -> None:
+    """The user-facing evaluation entry points on the card, each against a
+    ``--device cpu`` run where it has one: ``cli/rektnet_detect`` with the
+    trained ``.pt`` (keypoints within 1e-4; K2 once), ``cli/pipeline`` on
+    two 1280×960 frames with ``phase_yolo_disk``'s trained ``.weights`` at
+    ``model_cfg/yolo_baseline.cfg`` (K1, K2, K3 once a frame; at a
+    gap-picked threshold the masks equal the CPU's, and boxes, scores and
+    keypoints agree within ``PIPELINE_BOUNDS``),
+    ``cli/yolo_detect`` on one frame, ``cli/yolo_validate`` on the
+    validation CSV, and the tools ``eval_weights --n 32`` (at the trained
+    cfg and that threshold: every mAP, recall and precision finite) and
+    ``eval_rektnet_weights --n 64 --csv`` (its f32 L2 finite)."""
+    import ast
+    import json
+
+    from mit_driverless_cv_traininginfra_tpu_torch.cli import (
+        pipeline,
+        rektnet_detect,
+        yolo_detect,
+        yolo_validate,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
+        load_network_spec,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.data.decode import read_rgb
+    from mit_driverless_cv_traininginfra_tpu_torch.infer import detect
+    from mit_driverless_cv_traininginfra_tpu_torch.infer import pipeline as pl
+    from mit_driverless_cv_traininginfra_tpu_torch.ops.image import letterbox
+
+    timings = {}
+    rk = f"{root}/rk"
+    crop = f"{rk}/images/va_00001.npy"
+    pts = {}
+    for name in ("card", "cpu"):
+        zero_counts()
+        t0 = time.perf_counter()
+        text = run_cli(rektnet_detect.main, ["--model", rekt_pt, "--img", crop, "--output",
+                                             f"{root}/det_{name}"]
+                       + (["--device", "cpu"] if name == "cpu" else []),
+                       f"rektnet_detect on the {name}")
+        timings[f"rektnet_detect {name}"] = time.perf_counter() - t0
+        pts[name] = np.asarray(ast.literal_eval(text.split("keypoints: ")[1].strip()))
+        if name == "card":
+            k2 = k2_counts()["softargmax"]
+    err = float(np.abs(pts["card"] - pts["cpu"]).max())
+    log(f"rektnet_detect: keypoints card vs CPU within {err!r}; K2 launches {k2}")
+    check(err <= 1e-4 and k2 == 1, "rektnet_detect: card and CPU differ, or K2 did not run once")
+
+    cfg, weights, frames = yolo_run["cfg"], yolo_run["weights"], yolo_run["frames"]
+    spec, yolo = detect.load_detector(load_network_spec(cfg), weights, dev)
+    frame = torch.from_numpy(read_rgb(frames[0])).to(dev).float() / 255
+    boxed, _ = letterbox(frame[None], spec.net.height, spec.net.width)
+    thresh = pick_conf_thresh(yolo.detections(boxed, with_classes=False), MAX_DET)
+    del yolo
+    runs = {}
+    real = pl.two_stage_pipeline
+    for name in ("card", "cpu"):
+        outs = []
+
+        def recorded(*a, **k):
+            out = real(*a, **k)
+            outs.append(pl.PipelineOut(*(t.cpu() for t in out)))
+            return out
+
+        pl.two_stage_pipeline = recorded
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            for f in frames:
+                run_cli(pipeline.main, ["--target_path", f, "--model_cfg", cfg, "--yolo_weights",
+                                        weights, "--rektnet_weights", rekt_pt, "--conf_thres",
+                                        repr(thresh), "--output_path", f"{root}/pl_{name}"]
+                        + (["--device", "cpu"] if name == "cpu" else []),
+                        f"pipeline on the {name}")
+            timings[f"pipeline {name}"] = time.perf_counter() - t0
+            if name == "card":
+                counts = {k: f.launches for k, f in kernel_wrappers().items()}
+        finally:
+            pl.two_stage_pipeline = real
+        runs[name] = outs
+    masks_equal = all(torch.equal(a.mask, b.mask) for a, b in zip(runs["card"], runs["cpu"]))
+    n_boxes = [int(o.mask.sum()) for o in runs["card"]]
+    err = dict.fromkeys(("box", "box_rel", "score", "kpt", "kpt_rel"), 0.0)
+    for a, b in zip(runs["card"], runs["cpu"]):
+        m = b.mask
+        if not m.any():
+            continue
+        # in model space; boxes and keypoints over the CPU box's larger side
+        size = (b.boxes[m][..., 2:] - b.boxes[m][..., :2]).amax(-1).clamp(min=1.0)
+        d_box = (a.boxes - b.boxes)[m].abs().amax(-1)
+        d_kpt = (a.keypoints - b.keypoints)[m].abs().flatten(1).amax(-1)
+        for key, d, rel in (("box", d_box, True), ("kpt", d_kpt, True),
+                            ("score", (a.scores - b.scores)[m].abs(), False)):
+            err[key] = max(err[key], float(d.max()))
+            if rel:
+                err[key + "_rel"] = max(err[key + "_rel"], float((d / size).max()))
+    # the letterboxed input itself, card vs CPU (the resize's weights and sums)
+    x_cpu = letterbox(torch.from_numpy(read_rgb(frames[0])).float()[None] / 255,
+                      spec.net.height, spec.net.width)[0]
+    in_err = max_abs(boxed.cpu(), x_cpu)
+    log(f"pipeline at {spec.net.width}² on {len(frames)} frames of 1280×960, conf "
+        f"{thresh!r}: boxes per frame {n_boxes}, masks card = CPU {masks_equal}; card vs CPU "
+        f"(model space): boxes within {err['box']!r} px, {err['box_rel']!r} of the box's "
+        f"size; scores within {err['score']!r}; keypoints within {err['kpt']!r} px, "
+        f"{err['kpt_rel']!r} of the box's size (bounds {PIPELINE_BOUNDS}); the letterboxed "
+        f"frame within {in_err!r}; launches {counts}")
+    check(masks_equal and sum(n_boxes) > 0, "pipeline: the card's masks differ from the CPU's")
+    check(all(err[k] <= v for k, v in PIPELINE_BOUNDS.items()),
+          f"pipeline: card and CPU differ beyond {PIPELINE_BOUNDS}: {err}")
+    check(counts["roi_crop"] == counts["softargmax"] == counts["nms_topk"] == len(frames),
+          f"pipeline: K1-K3 did not launch once a frame: {counts}")
+
+    t0 = time.perf_counter()
+    text = run_cli(yolo_detect.main, ["--target_path", frames[0], "--model_cfg", cfg,
+                                      "--weights_path", weights, "--conf_thres", repr(thresh),
+                                      "--output_path", f"{root}/yd"], "yolo_detect on the card")
+    timings["yolo_detect"] = time.perf_counter() - t0
+    log("yolo_detect: " + " | ".join(text.strip().splitlines()))
+    t0 = time.perf_counter()
+    text = run_cli(yolo_validate.main, ["--model_cfg", cfg, "--weights_path", weights,
+                                        "--dataset_path", root, "--num_workers", "8"],
+                   "yolo_validate on the card")
+    timings["yolo_validate"] = time.perf_counter() - t0
+    log("yolo_validate: " + " | ".join(text.strip().splitlines()[-2:]))
+    check("seconds/image: " in text and "mAP: " in text, "yolo_validate: no mAP line")
+    # eval_weights at the cfg the weights were trained at (its anchors, 800²) and at the
+    # pipeline's threshold: these weights score no box above the tool's default 0.8
+    for name, argv in (("eval_weights", ["--weights", weights, "--n", "32", "--model_cfg",
+                                         cfg, "--conf", repr(thresh)]),
+                       ("eval_rektnet_weights", ["--pt", rekt_pt, "--n", "64", "--csv",
+                                                 f"{rk}/rektnet_label.csv", "--images",
+                                                 f"{rk}/images", "--ratio",
+                                                 repr(json.load(open(f"{rk}/meta.json"))
+                                                      ["validation_ratio"])])):
+        t0 = time.perf_counter()
+        line = run_cli(port_tool(name).main, argv, f"tools/{name}").strip().splitlines()[-1]
+        timings[name] = time.perf_counter() - t0
+        log(f"tools/{name}: {line} on {smi}")
+        got = json.loads(line)
+        keys = ([f"{m}_{t}" for t in ("f32", "int8") for m in ("map", "recall", "precision")]
+                if name == "eval_weights" else ["l2_f32", "l2_int8", "disk_val_l2_f32"])
+        check(all(math.isfinite(got[k]) for k in keys)
+              and (name != "eval_weights" or all(0 <= got[k] <= 1 for k in keys)),
+              f"tools/{name}: {keys} not all finite (and in [0, 1] for mAP, R, P)")
+    log(f"eval CLI seconds by part: {({k: round(v, 1) for k, v in timings.items()})} on {smi}")
 
 
 def main() -> int:
@@ -2485,7 +2827,16 @@ def main() -> int:
     phase_train_agree(dev)
     phase_train_card(dev, smi, rows)
     phase_driver(dev)
-    phase_yolo(dev, smi)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        yolo_run = phase_yolo(dev, smi, root)
+        t0 = time.perf_counter()
+        rekt_pt = phase_rektnet_disk(dev, smi, root)
+        log(f"phase rektnet_disk: {time.perf_counter() - t0:.1f} s on {smi}")
+        t0 = time.perf_counter()
+        phase_eval_cli(dev, smi, root, yolo_run, rekt_pt)
+        log(f"phase eval_cli: {time.perf_counter() - t0:.1f} s on {smi}")
     check("jax" not in sys.modules, "jax was imported")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -133,19 +133,6 @@ def _letterbox_u8(img: np.ndarray, H: int, W: int) -> np.ndarray:
     return np.asarray(padded.resize((W, H), Image.BILINEAR))
 
 
-def _darknet_trees(spec):
-    """(params, state) trees holding only each conv's weight shape, for
-    :func:`models.darknet.load_darknet_weights` to fill."""
-    from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
-        ConvBlock,
-    )
-
-    return {str(i): {"w": torch.empty((b.filters, spec.out_channels[i],
-                                       b.size, b.size))}
-            for i, b in enumerate(spec.blocks)
-            if isinstance(b, ConvBlock)}, {}
-
-
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="warmed two-stage serving over a stream of frames",
@@ -220,6 +207,7 @@ def _models(opt, spec, dev, lead_frames):
     """The detector and keypoint net at ``opt.precision`` on ``dev``, and
     their frame dtype. int8 calibrates on ``lead_frames`` (N, H, W, 3) f32
     in [0, 1]."""
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.detect import darknet_shape_trees
     from mit_driverless_cv_traininginfra_tpu_torch.models import (
         darknet,
         quantize,
@@ -229,7 +217,7 @@ def _models(opt, spec, dev, lead_frames):
     from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
 
     params, state, _ = darknet.load_darknet_weights(
-        spec, *_darknet_trees(spec), opt.yolo_weights)
+        spec, *darknet_shape_trees(spec), opt.yolo_weights)
     spec, folded = stem_opt.slice_preyolo(
         spec, darknet.fold_bn(params, state, spec))
     folded = _tree_to(folded, dev)

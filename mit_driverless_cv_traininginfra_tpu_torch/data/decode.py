@@ -5,6 +5,8 @@ Decodes go through the repository's native core (``native/``: libjpeg and
 libpng behind a C interface) when its library builds, else through PIL or
 OpenCV when one of them is installed, else raise. ``.npy`` frames need
 none of them: a machine without PIL and OpenCV (the card's) reads those.
+:func:`imread_bgr` is the RektNet loaders' ``cv2.imread``: BGR, or None
+for a file that cannot be read.
 """
 
 from __future__ import annotations
@@ -55,3 +57,14 @@ def read_rgb(path: str) -> np.ndarray:
     if img is None:
         raise IOError(f"cannot decode {path}")
     return np.ascontiguousarray(img[..., ::-1])
+
+
+def imread_bgr(path: str):
+    """``cv2.imread``'s result for the RektNet loaders: (H, W, 3) uint8 BGR
+    (``.npy`` arrays hold RGB, as for :func:`read_rgb`), or None where the
+    file is missing or does not decode."""
+    try:
+        rgb = read_rgb(path)
+    except (OSError, ValueError):  # missing, truncated or not an image
+        return None
+    return np.ascontiguousarray(rgb[..., ::-1])

@@ -18,7 +18,7 @@ import queue
 import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,16 +26,25 @@ import torch
 from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
 
 
-class DataLoader:
-    """Map-style dataset → shuffled batches of stacked numpy arrays.
+def collate_labelled(items):
+    """``(uri, image, labels)`` items → (uris: list[str], images: (B,H,W,C)
+    f32, labels: (B,T,5) f32)."""
+    uris = [it[0] for it in items]
+    imgs = np.stack([it[1] for it in items]).astype(np.float32)
+    labels = np.stack([it[2] for it in items]).astype(np.float32)
+    return uris, imgs, labels
 
-    Yields (uris: list[str], images: (B,H,W,C) f32, labels: (B,T,5) f32).
+
+class DataLoader:
+    """Map-style dataset → shuffled batches, each the ``collate`` of its
+    items (:func:`collate_labelled` by default).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, drop_last: bool = False, seed: int = 17,
-                 prefetch_batches: int = 2):
+                 prefetch_batches: int = 2, collate: Optional[Callable] = None):
         self.dataset = dataset
+        self.collate = collate or collate_labelled
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
@@ -60,13 +69,6 @@ class DataLoader:
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
 
-        def collate(futures):
-            items = [f.result() for f in futures]
-            uris = [it[0] for it in items]
-            imgs = np.stack([it[1] for it in items]).astype(np.float32)
-            labels = np.stack([it[2] for it in items]).astype(np.float32)
-            return uris, imgs, labels
-
         with ThreadPoolExecutor(self.num_workers) as pool:
             # at most `prefetch_batches` batches of samples in flight ahead
             # of the consumer, so host memory stays bounded
@@ -83,7 +85,7 @@ class DataLoader:
                         for i in batches[next_batch]
                     ])
                     next_batch += 1
-                yield collate(futures)
+                yield self.collate([f.result() for f in futures])
 
 
 def prefetch_to_device(iterator, device="cuda", depth: int = 2):

@@ -28,6 +28,25 @@ arithmetic, so the results are the library's bit for bit:
   passes in exact integers, one rounding; ``BORDER_REFLECT_101``.
 - :func:`filter2d`: ``cv2.filter2D`` of a float32 image with a 3×3 float32
   kernel, ``BORDER_REFLECT_101`` (products summed in kernel order).
+
+And the OpenCV calls of the RektNet dataset and the visualisations (the
+JAX package's ``ops/heatmap.py`` and ``utils/vis.py``):
+
+- :func:`resize_linear`: ``cv2.resize`` with its default ``INTER_LINEAR``
+  of a uint8 (H, W[, C]) image (11-bit fixed-point weights, the vertical
+  sum of two ``(b·(S >> 4)) >> 16`` terms, ``(v + 2) >> 2``; the rows
+  above and below the input blend a clamped row with itself) or of a
+  float64 (H, W) map (double weights, each pass the fused
+  ``fma(S1 − S0, f, S0)`` that OpenCV's build runs).
+- :func:`gaussian_blur_5x5_f64`: ``cv2.GaussianBlur(m, (5, 5), 0)`` of a
+  float64 map: OpenCV's σ = 0 table [1, 4, 6, 4, 1] / 16, the row pass
+  fused multiply-adds over groups of four columns and plain ones for the
+  rest, the column pass symmetric and plain; reflect-101 borders.
+- :func:`copy_make_border_constant`: ``cv2.copyMakeBorder(...,
+  BORDER_CONSTANT, value)``.
+
+:func:`fma` is a correctly rounded fused multiply-add in numpy, which the
+two float64 functions need to match OpenCV's fused arithmetic.
 """
 
 from __future__ import annotations
@@ -385,3 +404,160 @@ def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
             if kernel[i, j] != 0:
                 acc = acc + kernel[i, j] * src[i:i + h, j:j + w]
     return acc
+
+
+# ---------------------------------------------------------------------------
+# OpenCV's linear resize, 5×5 blur and constant border
+# ---------------------------------------------------------------------------
+
+_SPLIT = 134217729.0  # 2^27 + 1: Veltkamp's splitter for doubles
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a):
+    c = _SPLIT * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _fma_exact(a, b, c):
+    uh = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, uh)
+    v, err = _two_sum(tl, ul)
+    # v rounded to odd: an inexact v with an even last bit steps towards err
+    even = (np.ascontiguousarray(v).view(np.int64) & 1) == 0
+    v = np.where(even & (err != 0), np.nextafter(v, np.copysign(np.inf, err)), v)
+    return th + v
+
+
+def fma(a, b, c) -> np.ndarray:
+    """``a·b + c`` rounded once, in float64 (operands far from overflow and
+    underflow): the product exact as a sum of two doubles (Dekker), ``c``
+    added exactly (two-sum), the low parts rounded to odd and the whole
+    rounded to nearest (Boldo and Melquiond's emulated FMA). Where ``a`` or
+    ``b`` is 0 the product is exact and the plain ``a·b + c`` is taken, so
+    sparse maps (the one-hot heatmaps) pay for their nonzeros only."""
+    a, b, c = np.broadcast_arrays(np.asarray(a, np.float64), np.asarray(b, np.float64),
+                                  np.asarray(c, np.float64))
+    out = a * b + c
+    nz = (a != 0) & (b != 0)
+    if nz.any():
+        out[nz] = _fma_exact(a[nz], b[nz], c[nz])
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _linear_taps(in_size: int, out_size: int, clamp: bool, f32: bool):
+    """OpenCV's linear taps along one axis: the first source index and the
+    second tap's weight ``f`` from ``fma(d + ½, in/out, −½)`` (rounded to
+    float32 before the floor for uint8 images, ``f32``). ``clamp``
+    (columns) pins a tap outside the input to weight 0 and marks the right
+    edge's plain copies (``hi``); rows keep their weights and clamp only
+    the row index. Returns ``(s0, s1, f, hi)``, read-only."""
+    f = fma(np.arange(out_size) + 0.5, in_size / out_size, -0.5)
+    if f32:
+        f = f.astype(np.float32)
+    s = np.floor(f)
+    f = f - s
+    s = s.astype(np.int64)
+    hi = np.zeros(out_size, bool)
+    if clamp:
+        lo = s < 0
+        f[lo], s[lo] = 0.0, 0
+        hi = s >= in_size - 1
+        f[hi], s[hi] = 0.0, in_size - 1
+    out = (np.clip(s, 0, in_size - 1), np.clip(s + 1, 0, in_size - 1), f, hi)
+    for a in out:
+        a.setflags(write=False)
+    return out
+
+
+def _q11(w: np.ndarray) -> np.ndarray:
+    """float32 weights → OpenCV's 11-bit fixed point (``saturate_cast<short>
+    (w·2048)``: rounded half to even)."""
+    return np.rint(w * np.float32(2048)).astype(np.int64)
+
+
+def resize_linear(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, size=(width, height))`` with ``INTER_LINEAR`` of a
+    uint8 (H, W[, C]) image or a float64 (H, W) map (or a stack of them,
+    (..., H, W)), bit for bit.
+
+    uint8: float32 weights in 11-bit fixed point; exact integer horizontal
+    sums (the right edge copies its pixel ×2048); vertically
+    ``((b0·(S0 >> 4)) >> 16) + ((b1·(S1 >> 4)) >> 16)``, then
+    ``(v + 2) >> 2``. An exact halving of both sides is OpenCV's area
+    average ``(a + b + c + d + 2) >> 2``. float64: double weights, each pass
+    ``fma(S1 − S0, f, S0)``. An unchanged size is a copy."""
+    out_w, out_h = size
+    f64 = img.dtype == np.float64
+    h, w = img.shape[-2:] if f64 else img.shape[:2]
+    if (out_w, out_h) == (w, h):
+        return img.copy()
+    f32 = img.dtype == np.uint8
+    x0, x1, fx, xhi = _linear_taps(w, out_w, True, f32)
+    y0, y1, fy, _ = _linear_taps(h, out_h, False, f32)
+    if f64:
+        rows = fma(img[..., x1] - img[..., x0], fx, img[..., x0])
+        rows[..., xhi] = img[..., x0[xhi]]
+        return fma(rows[..., y1, :] - rows[..., y0, :], fy[:, None], rows[..., y0, :])
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_linear: uint8 or float64 input, not {img.dtype}")
+    if out_w * 2 == w and out_h * 2 == h:
+        x = img.astype(np.int32)
+        s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
+        return ((s + 2) >> 2).astype(np.uint8)
+    a0, a1 = _q11(np.float32(1) - fx), _q11(fx)
+    b0, b1 = _q11(np.float32(1) - fy), _q11(fy)
+    src = img.astype(np.int64)
+    col = (1, -1) + (1,) * (img.ndim - 2)
+    rows = src[:, x0] * a0.reshape(col) + src[:, x1] * a1.reshape(col)
+    rows[:, xhi] = src[:, x0[xhi]] * 2048
+    row = (-1,) + (1,) * (img.ndim - 1)
+    v = (((b0.reshape(row) * (rows[y0] >> 4)) >> 16)
+         + ((b1.reshape(row) * (rows[y1] >> 4)) >> 16))
+    return ((v + 2) >> 2).astype(np.uint8)
+
+
+_BLUR5 = (0.0625, 0.25, 0.375, 0.25, 0.0625)  # OpenCV's σ = 0 table for 5 taps
+
+
+def gaussian_blur_5x5_f64(m: np.ndarray) -> np.ndarray:
+    """``cv2.GaussianBlur(m, (5, 5), 0)`` of a float64 (H, W) map (H, W ≥ 3)
+    or a stack of them (..., H, W), reflect-101 borders. The row pass adds
+    the five taps in order, fused over the first ``4·⌊W/4⌋`` columns
+    (OpenCV's vector loop) and plain over the rest; the column pass is
+    ``k2·c + k1·(up1 + down1) + k0·(up2 + down2)``, plain."""
+    m = np.asarray(m, np.float64)
+    h, w = m.shape[-2:]
+    p = np.pad(m, [(0, 0)] * (m.ndim - 2) + [(2, 2), (2, 2)], mode="reflect")
+    nv = (w // 4) * 4
+    r = _BLUR5[0] * p[..., 0:w]
+    for j in range(1, 5):
+        tap = p[..., j:j + w]
+        k = np.float64(_BLUR5[j])
+        r = np.concatenate([fma(k, tap[..., :nv], r[..., :nv]), r[..., nv:] + k * tap[..., nv:]],
+                           -1)
+    c = _BLUR5[2] * r[..., 2:2 + h, :]
+    c = c + _BLUR5[1] * (r[..., 1:1 + h, :] + r[..., 3:3 + h, :])
+    return c + _BLUR5[0] * (r[..., 0:h, :] + r[..., 4:4 + h, :])
+
+
+def copy_make_border_constant(img: np.ndarray, top: int, bottom: int, left: int,
+                              right: int, value) -> np.ndarray:
+    """``cv2.copyMakeBorder(img, top, bottom, left, right,
+    cv2.BORDER_CONSTANT, value=value)``: ``img`` on a canvas of ``value``
+    (one value, or one a channel)."""
+    h, w = img.shape[:2]
+    out = np.empty((h + top + bottom, w + left + right) + img.shape[2:], img.dtype)
+    out[...] = np.asarray(value, img.dtype)
+    out[top:top + h, left:left + w] = img
+    return out

@@ -16,12 +16,19 @@ Negative final labels raise, as in the reference.
 Items are ``(uri, image (H, W, C) f32 in [0, 1], labels (T, 5) f32)``.
 Every draw comes from per-item generators keyed on (seed, epoch, index),
 the JAX package's, so the same item has the same draws in both packages.
+
+``vis_batch > 0`` writes each stage of the first ``vis_batch`` items —
+original, scaled and every patch (or pad-resized), before and after the
+augmentations — with its boxes to ``VIS_DIR`` (``utils/vis.py``), then
+exits, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import os
 import random
+import sys
+import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -38,6 +45,9 @@ from mit_driverless_cv_traininginfra_tpu_torch.ops.patches import (
     get_patch_spacings,
     pre_tile_padding,
 )
+from mit_driverless_cv_traininginfra_tpu_torch.utils.vis import visualize_and_save_to_local
+
+VIS_DIR = "outputs/visualization"
 
 
 def _np_xyhw_to_corner_with_class(boxes: np.ndarray) -> np.ndarray:
@@ -62,8 +72,7 @@ class ImageLabelDataset:
 
     ``ud_flip`` and ``salt`` are accepted and unused, as in the JAX
     package. ``device_aug`` leaves all but the affine warp to the train
-    step and returns pixel-corner labels. ``vis_batch > 0`` raises: the
-    stage-by-stage renders need ``utils/vis.py`` (ROADMAP Queue 1 item 4).
+    step and returns pixel-corner labels. ``debug_mode`` takes patch 0.
     """
 
     def __init__(
@@ -90,10 +99,6 @@ class ImageLabelDataset:
         seed: int = 17,
         device_aug: bool = False,
     ):
-        if vis_batch:
-            raise NotImplementedError(
-                "vis_batch: the visualisation renders need utils/vis.py, which "
-                "the port does not have yet (ROADMAP Queue 1 item 4)")
         table = read_yolo_csv(resolve_uri(path))  # gs:// via a local mirror
         self.img_files: List[str] = []
         self.labels: List[np.ndarray] = []
@@ -138,6 +143,8 @@ class ImageLabelDataset:
         self.data_aug = data_aug
         self.bw = bw
         self.vis_batch = vis_batch
+        self.vis_counter = 0
+        self._vis_lock = threading.Lock()
         self.blur = blur
         self.salt = salt
         self.noise = noise
@@ -165,6 +172,14 @@ class ImageLabelDataset:
             labels = np.concatenate([labels, np.zeros((pad, 5), np.float32)], 0)
         return labels
 
+    def _vis(self, img: np.ndarray, labels, uri: str, suffix: str, color: str) -> None:
+        """One stage of the ``vis_batch`` renders: ``img`` with its boxes as
+        ``VIS_DIR/<name>_<suffix>.jpg``."""
+        name = os.path.basename(uri).rsplit(".", 1)[0]
+        path = os.path.join(VIS_DIR, f"{name}_{suffix}.jpg")
+        visualize_and_save_to_local(img.copy(), labels, path, box_color=color)
+        print(f"new image saved to {path}")
+
     def __getitem__(self, index: int) -> Tuple[str, np.ndarray, np.ndarray]:
         # per-item generators: items are read on several loader threads at
         # once, where a shared generator would interleave their draws
@@ -172,6 +187,9 @@ class ImageLabelDataset:
         img_uri = self.img_files[index]
         img_boxes = self.labels[index]
         orig = read_rgb(img_uri)
+        if self.vis_batch and len(img_boxes) > 0:
+            raw = _np_xyhw_to_corner_with_class(np.asarray(img_boxes, np.float32))
+            self._vis(orig, raw, img_uri, "original", "green")
 
         if self.ts:
             scale = self.scales[index]
@@ -204,10 +222,22 @@ class ImageLabelDataset:
         if self.ts:
             labels[:, 1:5] *= self.scales[index]
             labels[:, 1:5] += [horiz_pad, vert_pad, horiz_pad, vert_pad]
+            if self.vis_batch:
+                scaled = raster.resize(orig, (sw, sh), raster.LANCZOS)
+                self._vis(raster.pad(scaled, vert_pad, horiz_pad), labels, img_uri,
+                          "scaled", "red")
+                for pi in range(n_patches):
+                    bnd = get_patch_bounds(cw, ch, pw, ph, pi)
+                    self._vis(raster.resized_crop(orig, (sw, sh), vert_pad, horiz_pad, bnd,
+                                                  raster.LANCZOS),
+                              filter_and_offset_labels(labels, bnd), img_uri,
+                              f"patch_{pi}", "blue")
             labels = filter_and_offset_labels(labels, boundary)
         else:
             labels[:, 1:5] += [horiz_pad, vert_pad, horiz_pad, vert_pad]
             labels[:, 1:5] *= ratio
+            if self.vis_batch:
+                self._vis(img, labels, img_uri, "pad_resized", "blue")
 
         if self.device_aug:
             # the host keeps only the affine warp; jitter, flip and noise
@@ -226,6 +256,8 @@ class ImageLabelDataset:
                 img = raster.to_grey(img)
             return img_uri, _as_float(img), self._pad_labels(labels.astype(np.float32))
 
+        if self.vis_batch and self.data_aug:
+            self._vis(img, labels, img_uri, "before_aug", "red")
         if (self.augment_hsv or self.data_aug) and rng.random() > 0.5:
             img = A.color_jitter(img, rng)
 
@@ -260,6 +292,15 @@ class ImageLabelDataset:
             arr = A.sigmoid_contrast(arr, rng.randint(5, 10), rng.uniform(0.45, 0.75))
         if self.sharpen and rng.random() > 0.3:
             arr = A.sharpen(arr, rng.uniform(0, 0.5))
+
+        if self.vis_batch:
+            if self.data_aug:
+                self._vis(arr, labels, img_uri, "post_augmentation", "green")
+            with self._vis_lock:
+                self.vis_counter += 1
+                done = self.vis_counter > (self.vis_batch - 1)
+            if done:
+                sys.exit("Finished visualizing enough images. Exiting!")
 
         # normalise to xywh in [0, 1]. The corner columns are copied first:
         # numpy column slices are views, so writing cx into out[:, 1] would

@@ -26,3 +26,11 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device type {dev.type!r}")
     return dev
+
+
+def full_f32(dev: torch.device) -> None:
+    """f32 means f32 on the card too: cuDNN runs f32 convolutions in TF32
+    (about three decimal digits) unless told not to. Sets the process-wide
+    flag for the card; nothing on the CPU."""
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False

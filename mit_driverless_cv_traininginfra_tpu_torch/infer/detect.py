@@ -17,7 +17,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import YoloHeads
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
+    ConvBlock,
+    NetworkSpec,
+)
+from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import (
+    Darknet,
+    YoloHeads,
+    fold_bn,
+    load_darknet_weights,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.ops.boxes import (
     calculate_padding,
 )
@@ -85,3 +94,22 @@ def detect_image(yolo: YoloHeads, image, conf_thresh: float = None,
     boxes = unletterbox_boxes(det.boxes[0], pad_h, pad_w, ratio)
     m = det.mask[0].cpu().numpy()
     return boxes.cpu().numpy()[m], det.scores[0].cpu().numpy()[m]
+
+
+def darknet_shape_trees(spec: NetworkSpec):
+    """(params, state) trees holding only each conv's weight shape, for
+    :func:`models.darknet.load_darknet_weights` to fill."""
+    return {str(i): {"w": torch.empty((b.filters, spec.out_channels[i], b.size, b.size))}
+            for i, b in enumerate(spec.blocks) if isinstance(b, ConvBlock)}, {}
+
+
+def load_detector(spec: NetworkSpec, weights_path: str, device="cpu"):
+    """The serving detector of ``spec`` from a Darknet ``.weights`` file: BN
+    folded, the heads sliced to their box and confidence columns
+    (``stem_opt.slice_preyolo``), f32, eval mode, on ``device``. Returns
+    ``(sliced spec, Darknet)``."""
+    from mit_driverless_cv_traininginfra_tpu_torch.models.stem_opt import slice_preyolo
+
+    params, state, _ = load_darknet_weights(spec, *darknet_shape_trees(spec), weights_path)
+    spec1, folded = slice_preyolo(spec, fold_bn(params, state, spec))
+    return spec1, Darknet(spec1, folded).to(device).eval()

@@ -11,8 +11,9 @@ RektNet, in the reference layout: a ``.pt`` file holds ``{epoch, model:
 KeypointNet state_dict, optimizer: torch.optim state_dict}`` (the
 reference's ``train_eval.py``), so the reference's tooling reads the
 port's runs and the port resumes from the reference's. The optimizer slot is ``torch.optim.Adam.state_dict()``
-itself; that file is the whole train state, so it also serves to resume
-(the JAX package keeps a separate orbax tree for that).
+itself; that file is the whole train state, so RektNet's ``--resume``
+reads it (the JAX package keeps a separate orbax tree for that). It is
+written through a temporary name, so a crash leaves no partial ``.pt``.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def save_rektnet_pt(path: str, model: KeypointNet, epoch: int = 0,
     """Write ``{epoch, model, optimizer}`` (tensors on the CPU)."""
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     opt_sd = {} if optimizer is None else _to_cpu(optimizer.state_dict())
-    torch.save({"epoch": epoch, "model": sd, "optimizer": opt_sd}, path)
+    torch.save({"epoch": epoch, "model": sd, "optimizer": opt_sd}, path + ".tmp")
+    os.replace(path + ".tmp", path)
 
 
 def load_rektnet_pt(path: str, model: KeypointNet,

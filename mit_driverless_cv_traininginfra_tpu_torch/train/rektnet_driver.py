@@ -8,30 +8,43 @@ at the end, the per-keypoint L2 report and the sweep layer's score file.
 
 :func:`train_rektnet` is fed loaders that yield the JAX loader's
 5-tuples ``(images (B, H, W, 3), heatmaps (B, K, H', W'), points (B, K,
-2), names, original sizes)`` as numpy arrays. Not here yet: the CSV and
-disk loader, the dataset arguments of ``main`` and the CLI, and the ONNX
-export of the best model.
+2), names, original sizes)`` as numpy arrays; :func:`main` builds them
+from the label CSV and the crops on disk (``data/rektnet_data.py``), as
+the JAX package's ``main`` does, on the card unless the caller asks for
+the CPU. Not ported: the ONNX export of the best model (ROADMAP Queue 1
+item 6; the loop says that it skips it) and several devices (item 8).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, Sequence
+import re
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mit_driverless_cv_traininginfra_tpu_torch.data.rektnet_data import (
+    DEFAULT_KEYPOINT_KEYS,
+    ConeDataset,
+    collate_cones,
+    load_train_csv_dataset,
+)
+from mit_driverless_cv_traininginfra_tpu_torch.data.loader import DataLoader
 from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
+from mit_driverless_cv_traininginfra_tpu_torch.models import rektnet
 from mit_driverless_cv_traininginfra_tpu_torch.ops.heatmap import (
     KPT_NAMES,
     keypoint_distance_summary,
     keypoint_l2_distances,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import (
+    load_rektnet_pt,
     save_rektnet_pt,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.train.optim import (
     exponential_lr,
+    make_optimizer,
     set_lr,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.train.steps import (
@@ -114,9 +127,9 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
     ``device``, the card unless the caller asks for the CPU; a missing card
     raises) and ``opt``. ``mixed_precision`` trains in bf16 compute;
     ``device_targets`` makes Gaussian heatmap targets on the device.
-    Writes ``<output_path>/<epoch>_loss_<val>.pt`` every
-    ``checkpoint_interval`` epochs. Returns ``(best validation loss, best
-    epoch, last epoch run)``."""
+    Writes ``<output_path>/<epoch>_loss_<val>.pt`` (the model, its Adam
+    state and the epoch) every ``checkpoint_interval`` epochs. Returns ``(best validation loss, best epoch, last epoch
+    run)``."""
     device = resolve_device(device)
     os.makedirs(output_path, exist_ok=True)
     loss_kw = dict(loss_type=loss_type, include_geo=include_geo,
@@ -143,6 +156,8 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
 
         if val_loss < best_val_loss:
             best_val_loss, best_epoch, tolerance = val_loss, epoch, 0
+            if save_checkpoints:
+                print("ONNX export module unavailable; skipping export")
         else:
             tolerance += 1
 
@@ -158,3 +173,94 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
     print_kpt_l2_distance(model, val_loader, kpt_keys, input_size, loss_kw,
                           device, log_dir, study_name)
     return best_val_loss, best_epoch, epoch
+
+
+def latest_checkpoint(output_path: str) -> Optional[str]:
+    """The ``<epoch>_loss_<val>.pt`` of the highest epoch in
+    ``output_path``, or None."""
+    found = [(int(m[1]), name) for name in os.listdir(output_path)
+             if (m := re.fullmatch(r"(\d+)_loss_.*\.pt", name))]
+    return os.path.join(output_path, max(found)[1]) if found else None
+
+
+def main(*, train_dataset_uri: str, dataset_path: str, output_path: str = "outputs/",
+         batch_size: int = 32, num_epochs: int = 1024, lr: float = 0.1,
+         lr_gamma: float = 0.999, validation_ratio: float = 0.15,
+         loss_type: str = "l1_softargmax", include_geo: bool = True,
+         geo_loss_gamma_horz: float = 0.0, geo_loss_gamma_vert: float = 0.0,
+         cross_batch: bool = True, checkpoint_interval: int = 4, input_size=(80, 80),
+         num_kpt: int = 7, study_name: str = "rektnet", evaluate_mode: bool = False,
+         save_checkpoints: bool = True, cache_location: Optional[str] = None,
+         checkpoint_path: Optional[str] = None, num_workers: int = 0,
+         n_devices: Optional[int] = None, seed: int = 17, mixed_precision="auto",
+         device_targets: bool = False, resume: bool = False,
+         vis_upload_data: bool = False, post_run_shutdown: bool = False,
+         kpt_keys: Sequence[str] = tuple(DEFAULT_KEYPOINT_KEYS), device="cuda",
+         log_dir: str = "logs"):
+    """The JAX package's ``main`` on ``device`` (the card unless the caller
+    asks for the CPU; a missing card raises): the label CSV and its crops →
+    loaders → ``train_rektnet``. The initial weights come from
+    ``checkpoint_path`` (a reference ``.pt``) or from ``rektnet.init`` with
+    ``torch.Generator().manual_seed(seed)``; Adam at ``lr``.
+    ``mixed_precision="auto"`` is bf16 compute on the card and f32 on the
+    CPU. ``resume`` restores the periodic ``.pt`` of the latest epoch in
+    ``output_path`` (:func:`latest_checkpoint`) and goes on at the next
+    epoch (the JAX package keeps an orbax tree beside it for that). ``evaluate_mode`` only writes the keypoint distances.
+    ``vis_upload_data`` renders the training split with its keypoints
+    into ``<output_path>/visualization`` and stops (then shuts the machine
+    down with ``post_run_shutdown``, as the reference does). Returns the
+    best validation loss (None after ``vis_upload_data``)."""
+    if n_devices not in (None, 1):
+        raise NotImplementedError(
+            "n_devices: training on several devices is not ported "
+            "(ROADMAP Queue 1 item 8, multi-device)")
+    dev = resolve_device(device)
+    os.makedirs(output_path, exist_ok=True)
+    if mixed_precision == "auto":
+        mixed_precision = dev.type == "cuda"
+    ti, tl, vi, vl = load_train_csv_dataset(
+        train_dataset_uri, validation_percent=validation_ratio, keypoint_keys=kpt_keys,
+        dataset_path=dataset_path, cache_location=cache_location)
+
+    if vis_upload_data:
+        from mit_driverless_cv_traininginfra_tpu_torch.utils.vis import visualize_dataset
+
+        n = visualize_dataset(ti, tl, dataset_path, os.path.join(output_path, "visualization"))
+        print(f"visualized {n} dataset images")
+        if post_run_shutdown:
+            print("Shutting down instance...")
+            os.system("shutdown now")
+        return None
+    train_loader = DataLoader(
+        ConeDataset(ti, tl, dataset_path, input_size, compute_heatmaps=not device_targets),
+        batch_size, shuffle=False, num_workers=num_workers, collate=collate_cones)
+    val_loader = DataLoader(ConeDataset(vi, vl, dataset_path, input_size), batch_size,
+                            shuffle=False, num_workers=num_workers, collate=collate_cones)
+
+    if checkpoint_path:
+        params, state = rektnet.load_torch_checkpoint(checkpoint_path)
+    else:
+        params, state = rektnet.init(torch.Generator().manual_seed(seed), num_kpt=num_kpt)
+    model = rektnet.KeypointNet(params, state).to(dev)
+    opt = make_optimizer(model.parameters(), "Adam", lr=lr)
+    start_epoch = 0
+    latest = latest_checkpoint(output_path) if resume else None
+    if latest is not None:
+        start_epoch = load_rektnet_pt(latest, model, opt) + 1
+        print(f"Resumed from {latest} at epoch {start_epoch}")
+
+    loss_kw = dict(loss_type=loss_type, include_geo=include_geo,
+                   geo_loss_gamma_horz=geo_loss_gamma_horz,
+                   geo_loss_gamma_vert=geo_loss_gamma_vert, cross_batch=cross_batch)
+    if evaluate_mode:
+        print_kpt_l2_distance(model, val_loader, kpt_keys, input_size, loss_kw, dev,
+                              log_dir, study_name, evaluate_mode=True)
+        return float("inf")
+    best, _, _ = train_rektnet(
+        model, opt, train_loader, val_loader, output_path=output_path, device=dev,
+        num_epochs=num_epochs, lr=lr, lr_gamma=lr_gamma,
+        mixed_precision=bool(mixed_precision), device_targets=device_targets,
+        checkpoint_interval=checkpoint_interval, save_checkpoints=save_checkpoints,
+        input_size=input_size, study_name=study_name, kpt_keys=kpt_keys,
+        start_epoch=start_epoch, log_dir=log_dir, **loss_kw)
+    return best

@@ -11,9 +11,15 @@ of the four probe kernels; then neither
 ``sys.modules``. Another fresh interpreter reads items of the YOLO disk
 dataset with every host augmentation (``.npy`` frames, k-means CSVs) and
 takes a device-aug step from a device pool, with neither ``jax`` nor PIL
-nor OpenCV in ``sys.modules``. An AST walk over the port's files and
-``chip_smoke.py``
-finds no import of the JAX package and no path into its directory."""
+nor OpenCV in ``sys.modules``. A third, with ``jax``, PIL, OpenCV and
+pandas blocked in ``sys.modules`` (an import of any raises), imports the
+RektNet disk path, the visualisations, the evaluation CLIs, the port's
+dataset and evaluation tools and ``chip_smoke.py``, reads ``.npy`` crops
+through ``ConeDataset``, draws and writes a ``utils/vis`` render, trains
+RektNet one epoch from disk, and runs the detect, pipeline and validate
+CLIs and both evaluation tools on the CPU. An AST walk over the port's
+files and ``chip_smoke.py`` finds no import of the JAX package and no
+path into its directory."""
 
 import ast
 import os
@@ -215,6 +221,96 @@ def test_disk_dataset_and_device_aug_step_need_no_jax_pil_or_cv2():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "no-jax-pil-cv2 ok" in proc.stdout
+
+
+BLOCKED_SCRIPT = r"""
+import sys
+for name in ("jax", "PIL", "cv2", "pandas"):
+    sys.modules[name] = None  # an import of any of them raises ImportError
+import contextlib, importlib.util, io, json, os, tempfile
+import numpy as np, torch
+import chip_smoke
+from mit_driverless_cv_traininginfra_tpu_torch import convert
+from mit_driverless_cv_traininginfra_tpu_torch.cli import (pipeline, rektnet_detect,
+    rektnet_train, yolo_detect, yolo_validate)
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import load_network_spec
+from mit_driverless_cv_traininginfra_tpu_torch.data import encode, raster, rektnet_data, synthetic
+from mit_driverless_cv_traininginfra_tpu_torch.data.loader import DataLoader
+from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_csv import YoloCsvRow, write_yolo_csv
+from mit_driverless_cv_traininginfra_tpu_torch.models import darknet, rektnet
+from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import save_rektnet_pt
+from mit_driverless_cv_traininginfra_tpu_torch.utils import draw, vis
+
+def tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, f"{REPO}/mit_driverless_cv_traininginfra_tpu_torch/tools/{name}.py")
+    m = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(m)
+    return m
+
+cpu = ["--device", "cpu"]
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+    os.chdir(tmp)
+    tool("make_synth_dataset").main(["--out", "rk", "--family", "rektnet", "--train", "4",
+                                     "--val", "2", "--format", "npy"])
+    ratio = str(json.load(open("rk/meta.json"))["validation_ratio"])
+    ti, tl, vi, vl = rektnet_data.load_train_csv_dataset("rk/rektnet_label.csv", float(ratio),
+                                                         dataset_path="rk/images")
+    imgs, hms, pts, names, sizes = next(iter(DataLoader(
+        rektnet_data.ConeDataset(ti, tl, "rk/images"), 4, shuffle=False, num_workers=2,
+        collate=rektnet_data.collate_cones)))
+    assert imgs.shape == (4, 80, 80, 3) and hms.shape == (4, 7, 80, 80) and len(vi) == 2
+    assert vis.visualize_dataset(ti[:1], tl[:1], "rk/images", "vis") == 1
+    assert open("vis/" + ti[0], "rb").read()[:2] == b"\xff\xd8"
+    common = ["--train_dataset_uri", "rk/rektnet_label.csv", "--dataset_path", "rk/images",
+              "--validation_ratio", ratio, "--batch_size", "2", "--lr", "1e-3"]
+    rektnet_train.main(common + ["--num_epochs", "2", "--checkpoint_interval", "2",
+                                 "--output_path", "run"] + cpu)
+    pt = "run/" + [f for f in os.listdir("run") if f.startswith("1_loss")][0]
+    rektnet_detect.main(["--model", pt, "--img", "rk/images/" + vi[0], "--output", "det"] + cpu)
+    tool("eval_rektnet_weights").main(["--pt", pt, "--n", "2", "--csv", "rk/rektnet_label.csv",
+                                       "--images", "rk/images", "--ratio", ratio] + cpu)
+    rng = np.random.default_rng(0)
+    rows = []
+    for k in range(2):
+        img, boxes = synthetic.cone_scene(rng, size=96, min_h=8, max_h=40)
+        np.save(f"s{k}.npy", (img * 255).astype(np.uint8))
+        rows.append(YoloCsvRow(f"s{k}.npy", 96, 96, 1.0, np.stack(
+            [boxes[:, 0], boxes[:, 1], boxes[:, 3] - boxes[:, 1], boxes[:, 2] - boxes[:, 0]], 1)))
+    write_yolo_csv("val.csv", rows)
+    cfg = open(REPO + "/tests/fixtures/tiny_test.cfg").read().replace(
+        "validate_uri=\n", "validate_uri=val.csv\n")
+    open("tiny.cfg", "w").write(cfg)
+    spec = load_network_spec("tiny.cfg", vanilla_anchor=True)
+    yp, ys = convert.init_darknet_np(spec, rng)
+    darknet.save_darknet_weights(spec, convert.from_jax(yp), convert.from_jax(ys), "y.weights")
+    det = ["--model_cfg", "tiny.cfg", "--vanilla_anchor"]
+    pipeline.main(det + ["--target_path", "s0.npy", "--yolo_weights", "y.weights",
+                         "--rektnet_weights", pt, "--output_path", "pl", "--conf_thres",
+                         "0.3"] + cpu)
+    assert np.load("pl/pipeline_s0.npy").shape == (96, 96, 3)
+    yolo_detect.main(det + ["--target_path", "s1.npy", "--weights_path", "y.weights",
+                            "--output_path", "yd"] + cpu)
+    yolo_validate.main(det + ["--weights_path", "y.weights", "--dataset_path", ".",
+                              "--num_workers", "1"] + cpu)
+    tool("eval_weights").main(["--weights", "y.weights", "--model_cfg", "tiny.cfg", "--n", "2"]
+                              + cpu)
+    os.chdir(REPO)
+found = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "PIL", "cv2", "pandas")
+    or m.startswith("mit_driverless_cv_traininginfra_tpu."))]
+assert not found, found
+print("blocked ok")
+"""
+
+
+def test_disk_rektnet_vis_and_eval_clis_need_no_jax_pil_cv2_or_pandas():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", f"REPO = {REPO!r}\n" + BLOCKED_SCRIPT],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "blocked ok" in proc.stdout
 
 
 # a file:line label of a TPU kernel (chip_smoke.py's "replaces" field) is a

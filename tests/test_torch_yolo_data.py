@@ -15,6 +15,8 @@ augmentation flag, two epochs) are bit-equal too: the largest difference
 is 0 levels on 0% of the pixels.
 """
 
+import contextlib
+import io
 import os
 import random
 
@@ -276,11 +278,38 @@ def test_dataset_items_equal_jax(dataset, kw):
             np.testing.assert_array_equal(img, jimg, err_msg=f"{kw} {epoch} {i}")
 
 
-def test_dataset_refuses_vis_batch(dataset):
+def test_dataset_refuses_vis_batch(dataset, tmp_path, monkeypatch):
+    """``vis_batch`` (which this port once refused) renders every stage of
+    its first items as the JAX package's ``_vis`` does — original, scaled,
+    each patch or the pad-resized image, before and after the
+    augmentations —, then exits: the same files, each array as drawn (boxes
+    1 px, PIL's colours) equal, before either package encodes it."""
+    from mit_driverless_cv_traininginfra_tpu_torch.utils import vis
+
     root, csvs = dataset
-    with pytest.raises(NotImplementedError, match="item 4"):
-        yolo_dataset.ImageLabelDataset(os.path.join(csvs["port"], "train.csv"), root, 64, 64,
-                                       vis_batch=2)
+    monkeypatch.chdir(tmp_path)
+    got, want = [], []
+    monkeypatch.setattr(vis, "_write_jpeg", lambda dest, arr, q: got.append((dest, arr.copy())))
+
+    def save(self, fp, format=None, **kw):
+        want.append((fp[:-len(".tmp.jpg")], np.asarray(self).copy()))
+        open(fp, "wb").close()
+
+    monkeypatch.setattr(Image.Image, "save", save)
+    args = (os.path.join(csvs["port"], "train.csv"), root, 64, 64)
+    for kw in (dict(data_aug=True, augment_affine=True, lr_flip=True),
+               dict(ts=False, data_aug=True), dict(augment_hsv=True)):
+        for cls in (yolo_dataset.ImageLabelDataset, jdataset.ImageLabelDataset):
+            ds = cls(*args, vis_batch=3, **kw)
+            ds.set_epoch(1)
+            with contextlib.redirect_stdout(io.StringIO()), pytest.raises(SystemExit):
+                for i in range(len(ds)):
+                    ds[i]
+    assert len(got) > 20 and [p for p, _ in got] == [p for p, _ in want]
+    assert {p.rsplit("_", 1)[-1] for p, _ in got} >= {"original.jpg", "scaled.jpg",
+                                                      "resized.jpg", "aug.jpg", "augmentation.jpg"}
+    for (path, a), (_, b) in zip(got, want):
+        np.testing.assert_array_equal(a, b, err_msg=path)
 
 
 # --- k-means ------------------------------------------------------------------

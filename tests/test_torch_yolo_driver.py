@@ -183,18 +183,14 @@ def test_num_steps_and_evaluate(tmp_path):
 
 def test_unported_modes_raise(tmp_path):
     """The driver's modes that are not ported raise, naming the ROADMAP
-    item that will port them (``device_aug`` is ported now)."""
+    item that will port them (``device_aug`` and the dataset's
+    ``vis_batch`` are ported now)."""
     kw = dict(model_cfg="tests/fixtures/tiny_test.cfg", weights_path=None,
               output_path=str(tmp_path), dataset_path=str(tmp_path), device="cpu")
     for extra, item in ((dict(packed_stem=True), "Queue 2 item 5"),
                         (dict(n_devices=4), "Queue 1 item 8")):
         with pytest.raises(NotImplementedError, match=item):
             yolo_driver.main(**kw, **extra)
-    from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_dataset import (
-        ImageLabelDataset,
-    )
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ImageLabelDataset("unused.csv", str(tmp_path), 64, 64, vis_batch=1)
 
 
 class _Items:
