@@ -20,7 +20,8 @@ synthetic scenes, and checks its hand-written CUDA kernels:
    NMS) against their plain PyTorch versions on the card, at the shapes
    the main path gives them, in f32 and bf16, with CUDA-event timings,
    one device kernel a call and its device time (``torch.profiler``); K2
-   at 448 and 784 rows (capacity 64 and 112), K3 at B=8 and B=1, and at
+   at 448 and 784 rows (capacity 64 and 112) and in bf16 at 1792 (the
+   B=256 training batch), K3 at B=8 and B=1, and at
    conf −1 on scores of ±0 (+0 ranks above −0, as lax.top_k ranks it); K1
    also: the plain crop's coordinates on the card bit-equal to the CPU's,
    its bf16 crops bit-equal to the plain crop on the CPU, and the host
@@ -65,11 +66,13 @@ synthetic scenes, and checks its hand-written CUDA kernels:
    with and without a probabilities' gradient, one device kernel a call,
    its registers and its device time, ``torch._softmax_backward_data`` on
    a precomputed ``gp`` beside it as a yardstick; again at 896 rows
-   (B=128);
+   (B=128), and at 1792 (B=256) in bf16 with and without the
+   probabilities' gradient;
 9. training: one f32 ``rektnet_train_step`` on the card against the CPU
    from the same seeded parameters and batch (loss, updated parameters,
-   running stats); 20 bf16 and 20 f32 steps on the card (finite losses,
-   K2 forward and backward launched, ms per step); two epochs of the
+   running stats); 20 bf16 and 20 f32 steps on the card (finite losses
+   that fall by a tenth, K2 forward and backward launched, ms per step);
+   two epochs of the
    training loop, whose ``.pt`` checkpoint is reloaded and compared;
 10. YOLO training (``phase_yolo``, each part's seconds printed):
    ``build_targets`` on every head bit-equal card vs CPU and the loss
@@ -77,7 +80,8 @@ synthetic scenes, and checks its hand-written CUDA kernels:
    SGD step at B=2 card vs CPU, each also against a float64 evaluation of
    the step; 20 bf16 and 20 f32 Adam steps at B=8 (finite losses, ms per
    step, peak memory; no K1-K5 wrapper launches: the path is cuDNN and
-   plain PyTorch); two epochs of ``train_yolo`` over in-memory scenes,
+   plain PyTorch); the gradient clip's two batched launches against one
+   tensor at a time, alone and in the 80-class B=32 bf16 step; two epochs of ``train_yolo`` over in-memory scenes,
    its ``.weights`` and full state reloaded and compared, and a resume
    that runs epoch 3 only; 200 bf16 steps on a pool of 256 scenes (the
    loss must fall), ``validate_map`` on 32 held-out scenes, and the
@@ -110,7 +114,23 @@ synthetic scenes, and checks its hand-written CUDA kernels:
    ``model_cfg/yolo_baseline.cfg`` card vs CPU (masks equal at a
    gap-picked threshold, K1, K2 and K3 once a frame; the boxes' and the
    letterboxed input's differences logged), ``cli/yolo_detect``, ``cli/yolo_validate`` and the tools
-   ``eval_weights`` and ``eval_rektnet_weights`` (their JSON lines).
+   ``eval_weights`` and ``eval_rektnet_weights`` (their JSON lines);
+14. export, hyper-search and ``train_to_map`` (``phase_export_hyper``,
+   each part's seconds printed): ``cli/yolo2onnx`` on phase 11's weights
+   (YOLOv3 at ``model_cfg/yolo_baseline.cfg``, 80 classes, 320×800) and
+   ``cli/pt_to_onnx`` on phase 12's ``.pt``, each file run by the numpy
+   evaluator (``export/onnx_eval.py``) on a seeded input and held to the
+   card's f32 eval forward within ``EXPORT_REL`` of each output's largest
+   |value|; one epoch of ``cli/rektnet_train`` whose best-model ONNX
+   equals ``cli/pt_to_onnx`` of those weights byte for byte (K2 and K2's
+   backward counted), a ``cli/yolo_train`` epoch stopped by
+   ``--val_tolerance 0`` whose ONNX parses; ``cli/rektnet_hyper`` with two
+   one-epoch trials in a subprocess (two completed trials, finite scores,
+   seconds a trial); ``tools/train_to_map.py`` for YOLO (300 bf16 steps at
+   B=32, mAP at conf 0.8 of the f32 and int8 models on 64 scenes; no
+   K1-K5) and RektNet (300 steps at B=256; K2 and its backward once a
+   step; the held-out L2 under half the untrained model's), both JSON
+   lines printed.
 
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
@@ -170,6 +190,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
 B_SERVE, SIZE, MAX_DET = 8, 416, 16
 CROP_N = 64                  # crops per kernel check: a served capacity at B=8
+RK_TTM_B = 256               # tools/train_to_map.py's RektNet batch
 PTS_ATOL = {torch.float32: 1e-6, torch.bfloat16: 2e-3}
 
 
@@ -310,6 +331,19 @@ def int_mm_ms(shapes, repeat: int = 1, iters: int = 5) -> float:
 
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def bf16_brackets(got, ref32) -> bool:
+    """Every value of the bf16 ``got`` is one of the two bf16 neighbours
+    of the f32 ``ref32`` (its rounding down or up; the value itself where
+    bf16 holds it exactly): what an f32 difference far below a bf16 step
+    can make of a rounding, in either direction."""
+    near = ref32.to(torch.bfloat16)
+    bits = near.view(torch.int16)
+    toward = torch.sign(ref32 - near.float()).to(torch.int16)  # 0 where exact
+    other = bits + torch.where(bits < 0, -toward, toward)      # sign-magnitude bits
+    g = got.view(torch.int16)
+    return bool(((g == bits) | (g == other)).all())
 
 
 # ---------------------------------------------------------------------------
@@ -470,10 +504,12 @@ def phase_k2(dev, rows: dict) -> None:
             pts_r, probs_r = _torch_softargmax(z)
             e_pts = max_abs(pts, pts_r)
             e_pr = max_abs(probs, probs_r)
-            # probs: f32 within 1e-6; bf16 also within one bf16 ulp (2^-8
-            # relative), where an f32 difference crosses a rounding boundary
-            pr_ok = torch.allclose(probs.float(), probs_r.float(), atol=1e-6,
-                                   rtol=0.0 if dt == torch.float32 else 2 ** -8)
+            # probs: f32 within 1e-6; bf16 a rounding, either way, of the
+            # plain version's f32 probabilities (a bf16 step is 2^-8 to
+            # 2^-7 of the value)
+            pr_ok = (torch.allclose(probs, probs_r, atol=1e-6, rtol=0.0)
+                     if dt == torch.float32 else
+                     bf16_brackets(probs, _torch_softargmax(z.float())[1]))
             k_ms, p_ms = paired_ms(lambda: fused_softargmax(z),
                                    lambda: _torch_softargmax(z))
             kernels, per_call, dev_ms = device_kernels(lambda: fused_softargmax(z), 20)
@@ -492,6 +528,17 @@ def phase_k2(dev, rows: dict) -> None:
                                           kernels_per_call=per_call, library_ms=None, **b)
             elif dt == torch.bfloat16:
                 rows["softargmax"]["device_ms_m784"] = dev_ms
+    # train_to_map's RektNet batch: 256 crops, 1792 maps, bf16
+    z = torch.from_numpy(rng.normal(0, 3, (7 * RK_TTM_B, 80, 80)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    pts, probs = fused_softargmax(z)
+    pts_r, probs_r = _torch_softargmax(z)
+    e_pts = max_abs(pts, pts_r)
+    pr_ok = bf16_brackets(probs, _torch_softargmax(z.float())[1])
+    log(f"K2 softargmax bfloat16: M={z.shape[0]} max|d pts|={e_pts!r} "
+        f"max|d probs|={max_abs(probs, probs_r)!r}")
+    check(e_pts <= PTS_ATOL[torch.bfloat16] and pr_ok, f"K2 bf16 M={z.shape[0]} disagrees")
+    errs.append(e_pts)
     rows["softargmax"]["max_abs_err"] = max(errs)
 
 
@@ -1565,6 +1612,14 @@ def phase_k2_bwd(dev, rows: dict) -> None:
     errs.append(held(p896, g896))
     dev896 = device_kernels(lambda: softargmax_bwd(p896, g896), 20)[2]
     log(f"K2-bwd bf16 M={4 * m}: device {dev896!r} ms")
+    # train_to_map's RektNet batch: 1792 rows, bf16, with and without g_probs
+    m = 7 * RK_TTM_B
+    z = torch.from_numpy(rng.normal(0, 3, (m, 80, 80)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(0, 1, (m, 2)).astype(np.float32)).to(dev)
+    g_pr = torch.from_numpy(rng.normal(0, 1e-2, (m, 80, 80)).astype(np.float32)).to(dev)
+    _, p_ttm = _torch_softargmax(z.to(torch.bfloat16))
+    for g_probs in (g_pr.to(torch.bfloat16), None):
+        errs.append(held(p_ttm, g, g_probs))
     rows["softargmax_bwd"].update(device_ms_896=dev896, max_abs_err=max(errs))
 
 
@@ -1674,6 +1729,8 @@ def phase_train_card(dev, smi, rows: dict) -> dict:
             f"{TRAIN_B * 1e3 / ms!r} crops/s, loss {float(losses[0])!r} → "
             f"{float(losses[-1])!r} on {smi}")
         check(bool(torch.isfinite(losses).all()), f"train {dt}: non-finite loss")
+        # 20 steps on one batch: f32 and bf16 alike take a tenth off
+        check(float(losses[-1]) < 0.9 * float(losses[0]), f"train {dt}: the loss did not fall")
     launches = {"softargmax": fused_softargmax.launches,
                 "softargmax_bwd": softargmax_bwd.launches}
     log(f"train launches over the 40 steps: {launches}")
@@ -1985,6 +2042,68 @@ def phase_yolo_train_card(dev, smi) -> None:
         del model, opt
 
 
+def clip_loop(grads, max_norm: float) -> None:
+    """The gradient clip one tensor at a time (a yardstick): four
+    launches a tensor (divide, multiply, select, copy)."""
+    from mit_driverless_cv_traininginfra_tpu_torch.train.optim import global_norm
+
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+def phase_clip_cost(dev, smi) -> None:
+    """``train/optim.clip_by_global_norm`` (two batched launches) against
+    :func:`clip_loop` on YOLOv3-416's 80-class gradients, as
+    ``tools/train_to_map.py`` clips them at 10.0: the two forms' results
+    compared, the clip alone (host clock, synchronised), and the bf16 B=32
+    step with each, in the order batched, loop, loop, batched."""
+    from mit_driverless_cv_traininginfra_tpu_torch.config.flagship import flagship_spec
+    from mit_driverless_cv_traininginfra_tpu_torch.data.synthetic import yolo_batch
+    from mit_driverless_cv_traininginfra_tpu_torch.train import optim
+    from mit_driverless_cv_traininginfra_tpu_torch.train.steps import yolo_train_step
+
+    spec = flagship_spec(SIZE)
+    imgs, targets = yolo_batch(np.random.default_rng(31), 32, size=SIZE, max_cones=8,
+                               min_h=18, max_h=120, max_overlap=0.1)
+    imgs, targets = torch.from_numpy(imgs).to(dev), torch.from_numpy(targets).to(dev)
+    model = train_darknet(spec, dev)
+    opt = optim.make_optimizer(model.parameters(), "Adam", lr=1e-4, grad_clip=10.0)
+    yolo_train_step(model, opt, imgs, targets, compute_dtype="bfloat16")
+    grads = [p.grad for p in model.parameters()]
+    a, b = [g.clone() * 1e3 for g in grads], [g.clone() * 1e3 for g in grads]
+    optim.clip_by_global_norm(a, 10.0)
+    clip_loop(b, 10.0)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def host_ms(fn, n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    forms = {"batched": optim.clip_by_global_norm, "loop": clip_loop}
+    clip = {k: [] for k in forms}
+    step = {k: [] for k in forms}
+    for name in ("batched", "loop", "loop", "batched"):
+        clip[name].append(host_ms(lambda: forms[name](a, 10.0), 50))
+        optim.clip_by_global_norm = forms[name]  # what optimizer_step calls
+        try:
+            step[name].append(host_ms(lambda: yolo_train_step(
+                model, opt, imgs, targets, compute_dtype="bfloat16"), 10))
+        finally:
+            optim.clip_by_global_norm = forms["batched"]
+    log(f"gradient clip on {len(grads)} YOLOv3-416 gradients: batched equal to the loop "
+        f"{same}; the clip alone, ms (host clock) {clip}; the bf16 B=32 step, ms {step} "
+        f"on {smi}")
+    check(all(math.isfinite(v) for v in clip["batched"] + step["batched"]),
+          "clip: a time is not finite")
+    del model, opt, grads, a, b
+
+
 def trees_equal(a, b) -> bool:
     return all(torch.equal(x.cpu(), y.cpu()) for _, x, y in tree_pairs(a, b))
 
@@ -2025,8 +2144,9 @@ def phase_yolo_driver(dev, smi) -> None:
     train, val = loader(30, 2), loader(31, 1)
     model = train_darknet(spec, dev, seed=1)
     opt = make_optimizer(model.parameters(), "Adam", lr=5e-4)
+    # flagship_spec's cfg text is config/cfg_factory.yolov3_cfg's
     kw = dict(device=dev, lr=5e-4, gamma=0.95, checkpoint_interval=1,
-              val_tolerance=99, min_epochs=3, mixed_precision=True)
+              val_tolerance=99, min_epochs=3, mixed_precision=True, model_cfg="yolov3.cfg")
     with tempfile.TemporaryDirectory() as tmp:
         text = io.StringIO()
         with contextlib.redirect_stdout(text):
@@ -2426,7 +2546,8 @@ def phase_yolo(dev, smi, root: str) -> dict:
     before = training_launches()
     for name, fn in (("yolo_targets", lambda: phase_yolo_targets(dev)),
                      ("yolo_train_agree", lambda: phase_yolo_train_agree(dev)),
-                     ("yolo_train_card", lambda: phase_yolo_train_card(dev, smi))):
+                     ("yolo_train_card", lambda: phase_yolo_train_card(dev, smi)),
+                     ("clip_cost", lambda: phase_clip_cost(dev, smi))):
         t0 = time.perf_counter()
         fn()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
@@ -2785,6 +2906,258 @@ def phase_eval_cli(dev, smi, root: str, yolo_run: dict, rekt_pt: str) -> None:
     log(f"eval CLI seconds by part: {({k: round(v, 1) for k, v in timings.items()})} on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: export, the export hooks, hyper-search and train_to_map
+# ---------------------------------------------------------------------------
+
+# the numpy evaluator's graph against the card's f32 forward, each head's
+# (map's) largest difference over its largest |value| (f32 sums of up to
+# 9216 terms a conv, in other orders, through 75 layers)
+EXPORT_REL = 1e-4
+TTM_YOLO = ["--steps", "300", "--batch", "32", "--eval-n", "64"]
+TTM_REKTNET = ["--family", "rektnet", "--steps", "300"]
+
+
+def onnx_vs_card(path: str, inputs: dict, want: list, what: str) -> dict:
+    """Parse the exported file and run it with ``onnx_eval.run_model`` on
+    the host; hold each output to ``want`` (NCHW tensors on the card)
+    within ``EXPORT_REL`` of its largest |value|."""
+    from mit_driverless_cv_traininginfra_tpu_torch.export import onnx_writer
+    from mit_driverless_cv_traininginfra_tpu_torch.export.onnx_eval import run_model
+
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        parsed = onnx_writer.parse_model(f.read())
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = list(run_model(parsed, inputs).values())
+    t_eval = time.perf_counter() - t0
+    check(len(got) == len(want), f"{what}: {len(got)} outputs, expected {len(want)}")
+    rel = []
+    for g, w in zip(got, want):
+        w = w.float().cpu()
+        check(tuple(g.shape) == tuple(w.shape), f"{what}: output {g.shape} vs {tuple(w.shape)}")
+        rel.append(max_abs(torch.from_numpy(g), w) / max(float(w.abs().max()), 1e-30))
+    log(f"{what}: {len(parsed['nodes'])} nodes, {len(parsed['initializers'])} initializers; "
+        f"parse {t_parse:.1f} s, onnx_eval {t_eval:.1f} s; outputs {[tuple(g.shape) for g in got]}"
+        f" vs the card's f32 forward within {rel!r} of each one's max |value| "
+        f"(bound {EXPORT_REL})")
+    check(all(r <= EXPORT_REL for r in rel), f"{what}: the exported graph differs from the "
+          f"card's forward by {rel} of its outputs' range")
+    return {"parse_s": t_parse, "eval_s": t_eval, "outputs": parsed["outputs"]}
+
+
+def untrained_rektnet_l2(dev) -> float:
+    """The mean keypoint L2 that ``tools/train_to_map.py --family rektnet``
+    reports, of its model before training: the folded f32 RektNet from
+    its seed (1) on its 256 held-out crops (seed 999)."""
+    from mit_driverless_cv_traininginfra_tpu_torch.data.synthetic import rektnet_batch
+    from mit_driverless_cv_traininginfra_tpu_torch.models import rektnet
+
+    crops, pts = rektnet_batch(np.random.default_rng(999), 256)
+    model = rektnet.RektNet(rektnet.fold_bn(*rekt_trees(1))).to(dev).eval()
+    with torch.inference_mode():
+        _, got = model(torch.from_numpy(crops).to(dev))
+    return float(np.linalg.norm(got.float().cpu().numpy() - pts, axis=-1).mean())
+
+
+def phase_export_hyper(dev, smi, root: str, yolo_run: dict, rekt_pt: str) -> None:
+    """Export, hyper-search and ``train_to_map`` on what the earlier phases
+    trained, each part's seconds printed: ``cli/yolo2onnx`` on
+    ``phase_yolo_disk``'s ``.weights`` (YOLOv3 at ``model_cfg/
+    yolo_baseline.cfg``, 80 classes, onnx_height 320 × 800), run by the
+    numpy evaluator on one seeded frame against ``TrainDarknet`` in eval
+    mode, f32 on the card; ``cli/pt_to_onnx`` on ``phase_rektnet_disk``'s
+    ``.pt`` against ``KeypointNet``'s logits at (1, 3, 80, 80); the hooks:
+    one epoch of ``cli/rektnet_train`` whose best-model ONNX equals
+    ``cli/pt_to_onnx`` of the weights it exported, byte for byte (K2 and
+    K2-bwd counted), and a ``cli/yolo_train`` epoch stopped by
+    ``--val_tolerance 0`` whose ONNX parses; ``cli/rektnet_hyper`` with 2
+    trials of 1 epoch in a subprocess (2 completed trials, finite scores);
+    both families of ``tools/train_to_map.py`` (K2 and K2-bwd launched once
+    a RektNet step; none of K1-K5 in the YOLO family)."""
+    import json
+    import os
+
+    from mit_driverless_cv_traininginfra_tpu_torch.cli import (
+        pt_to_onnx,
+        rektnet_train,
+        yolo2onnx,
+        yolo_train,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
+        load_network_spec,
+    )
+    from mit_driverless_cv_traininginfra_tpu_torch.device import full_f32
+    from mit_driverless_cv_traininginfra_tpu_torch.export import onnx_writer
+    from mit_driverless_cv_traininginfra_tpu_torch.models import darknet, rektnet
+    from mit_driverless_cv_traininginfra_tpu_torch.train import rektnet_driver
+    from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import save_rektnet_pt
+
+    full_f32(dev)
+    timings = {}
+    rk = f"{root}/rk"
+    ex = f"{root}/export"
+    os.makedirs(ex, exist_ok=True)
+    cfg, weights = yolo_run["cfg"], yolo_run["weights"]
+
+    # 1. YOLOv3 at full width through the numpy evaluator
+    spec = load_network_spec(cfg)
+    t0 = time.perf_counter()
+    text = run_cli(yolo2onnx.main, ["--cfg_name", cfg, "--weights_name", weights,
+                                    "--output", f"{ex}/yolo.onnx"], "export cli/yolo2onnx")
+    timings["yolo2onnx"] = time.perf_counter() - t0
+    check(text.strip() == f"wrote {ex}/yolo.onnx", f"yolo2onnx printed {text!r}")
+    h, w = spec.net.onnx_height, spec.net.width
+    x = np.random.default_rng(15).uniform(0, 1, (1, 3, h, w)).astype(np.float32)
+    params, state, _ = darknet.load_darknet_weights(
+        spec, *darknet.init_params(spec, torch.Generator().manual_seed(0)), weights)
+    model = darknet.TrainDarknet(spec, params, state).to(dev).eval()
+    with torch.no_grad():
+        heads = [t.permute(0, 3, 1, 2) for t in model.forward_features(
+            torch.from_numpy(x).to(dev).permute(0, 2, 3, 1))]
+    del model
+    log(f"export: YOLOv3 {spec.net.num_classes} classes at {h}x{w}, "
+        f"{os.path.getsize(f'{ex}/yolo.onnx') / 2**20:.1f} MiB of ONNX")
+    got = onnx_vs_card(f"{ex}/yolo.onnx", {"000_net": x}, heads, "export YOLOv3 onnx_eval")
+    timings.update({"yolo_parse": got["parse_s"], "yolo_onnx_eval": got["eval_s"]})
+    yolo_outputs = got["outputs"]
+
+    # 2. RektNet
+    t0 = time.perf_counter()
+    run_cli(pt_to_onnx.main, ["--model", rekt_pt, "--output", f"{ex}/rekt.onnx"],
+            "export cli/pt_to_onnx")
+    timings["pt_to_onnx"] = time.perf_counter() - t0
+    xr = np.random.default_rng(16).uniform(0, 1, (1, 3, 80, 80)).astype(np.float32)
+    kp = rektnet.KeypointNet(*rektnet.load_torch_checkpoint(rekt_pt)).to(dev).eval()
+    with torch.no_grad():
+        logits = kp.logits(torch.from_numpy(xr).to(dev).permute(0, 2, 3, 1))
+    got = onnx_vs_card(f"{ex}/rekt.onnx", {"input": xr}, [logits], "export RektNet onnx_eval")
+    timings["rektnet_onnx_eval"] = got["eval_s"]
+
+    # 3. the hooks: RektNet's best model, YOLO's early stop
+    ratio = json.load(open(f"{rk}/meta.json"))["validation_ratio"]
+    exported = []
+    real_export = rektnet_driver.export_rektnet_onnx
+
+    def recorded(params, state, path, **kw):
+        exported.append((params, state, path))
+        return real_export(params, state, path, **kw)
+
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLIs write logs/ where they run
+    rektnet_driver.export_rektnet_onnx = recorded
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        text = run_cli(rektnet_train.main, [
+            "--train_dataset_uri", f"{rk}/rektnet_label.csv", "--dataset_path",
+            f"{rk}/images", "--validation_ratio", repr(ratio), "--batch_size", str(RK_B),
+            "--lr", "1e-3", "--num_epochs", "1", "--save_checkpoints", "--num_workers", "1",
+            "--output_path", f"{ex}/hook"], "export hook: cli/rektnet_train 1 epoch")
+        timings["rektnet_hook"] = time.perf_counter() - t0
+        counts = k2_counts()
+        t0 = time.perf_counter()
+        run_cli(yolo_train.main, [
+            "--model_cfg", cfg, "--dataset_path", root, "--batch_size", str(DISK_B),
+            "--num_workers", str(os.cpu_count()), "--lr", "0.0005", "--num_epochs", "1",
+            # within min_epochs (3) a check counts as a decrease: tolerance 0
+            # stops at the first check whatever its loss
+            "--num_steps", "4", "--val_tolerance", "0", "--weights_path", weights,
+            "--output_path", f"{ex}/yolo_hook"],
+            "export hook: cli/yolo_train --val_tolerance 0")
+        timings["yolo_hook"] = time.perf_counter() - t0
+    finally:
+        rektnet_driver.export_rektnet_onnx = real_export
+        os.chdir(cwd)
+    onnx = f"{ex}/hook/best_keypoints_8080.onnx"
+    steps = -(-RK_TRAIN // RK_B)
+    evals = 2 * -(-RK_VAL // RK_B)  # the validation and the closing distances
+    log(f"export hook: K2 launches over 1 epoch of cli/rektnet_train {counts} ({steps} steps, "
+        f"{evals} eval batches); {len(exported)} ONNX export(s)")
+    check(counts == {"softargmax": steps + evals, "softargmax_bwd": steps},
+          "export hook: K2's launches do not follow the steps")
+    check(len(exported) == 1 and exported[0][2] == onnx and f"Saving ONNX model to {onnx}" in text,
+          f"export hook: expected one best-model export to {onnx}, got {len(exported)}")
+    best = rektnet.KeypointNet(*exported[0][:2])
+    save_rektnet_pt(f"{ex}/hook_best.pt", best)
+    run_cli(pt_to_onnx.main, ["--model", f"{ex}/hook_best.pt"], "export hook: cli/pt_to_onnx")
+    same = open(onnx, "rb").read() == open(f"{ex}/hook_best.onnx", "rb").read()
+    log(f"export hook: best_keypoints_8080.onnx = pt_to_onnx of the best weights, byte for "
+        f"byte: {same}")
+    check(same, "export hook: the loop's ONNX differs from pt_to_onnx of its weights")
+    yolo_onnx = f"{ex}/yolo_hook/{spec.net.onnx_name(cfg)}"
+    check(os.path.exists(yolo_onnx), f"export hook: no {yolo_onnx} after the early stop")
+    with open(yolo_onnx, "rb") as f:
+        parsed = onnx_writer.parse_model(f.read())
+    log(f"export hook: yolo_train's early stop wrote {os.path.basename(yolo_onnx)}: "
+        f"{len(parsed['nodes'])} nodes, outputs {[o['shape'] for o in parsed['outputs']]}")
+    check(parsed["outputs"] == yolo_outputs and parsed["inputs"][0]["shape"] == [1, 3, h, w],
+          "export hook: the early stop's ONNX is not the cfg's graph")
+
+    # 4. hyper-search: a user's study of 2 trials, each its own process
+    hyper = f"{root}/hyper"
+    os.makedirs(hyper, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mit_driverless_cv_traininginfra_tpu_torch.cli.rektnet_hyper",
+         "--num_trials", "2", "--num_epochs", "1", "--geo_loss_study", "--train_dataset_uri",
+         f"{rk}/rektnet_label.csv", "--dataset_path", f"{rk}/images"],
+        cwd=hyper, env=env, capture_output=True, text=True, timeout=600)
+    timings["hyper"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"rektnet_hyper: exit code {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    trials = json.load(open(f"{hyper}/studies/rektnet_study.json"))["trials"]
+    log("hyper: " + "; ".join(
+        f"trial {t['number']} {t['state']} value {t['value']!r} params {t['params']} "
+        f"{t['duration']:.1f} s" for t in trials) + f" on {smi}")
+    check(len(trials) == 2 and all(t["state"] == "COMPLETE" and math.isfinite(t["value"])
+                                   for t in trials),
+          "rektnet_hyper: the study does not hold 2 completed trials with finite scores")
+
+    # 5. train_to_map, both families
+    tool = port_tool("train_to_map")
+    lines = {}
+    for name, argv in (("yolo", TTM_YOLO), ("rektnet", TTM_REKTNET)):
+        zero_counts()
+        before = training_launches()
+        t0 = time.perf_counter()
+        text = run_cli(tool.main, argv, f"train_to_map --family {name}")
+        timings[f"train_to_map {name}"] = time.perf_counter() - t0
+        line = text.strip().splitlines()[-1]
+        log(f"train_to_map {name}: {line} on {smi}")
+        got = json.loads(line)
+        lines[name] = got
+        check(all(math.isfinite(v) for k, v in got.items() if k != "metric"),
+              f"train_to_map {name}: a value is not finite")
+        if name == "yolo":
+            check(all(0 <= got[k] <= 1 for k in ("map_f32_conf08", "recall_f32",
+                                                 "precision_f32", "map_int8_conf08")),
+                  "train_to_map yolo: mAP, recall or precision outside [0, 1]")
+            after = training_launches()
+            check(after == before, f"train_to_map yolo: a K1-K5 kernel launched: {after}")
+        else:
+            counts = k2_counts()
+            n = got["steps"]
+            # each step once (the first, untimed, too), and K2's forward 3
+            # times more in the evaluation: calibration, f32, int8
+            log(f"train_to_map rektnet: K2 launches {counts} ({n} + 1 steps, 3 evaluation "
+                f"forwards)")
+            check(counts == {"softargmax": n + 1 + 3, "softargmax_bwd": n + 1},
+                  f"train_to_map rektnet: K2 and K2-bwd did not launch once a step: {counts}")
+            before = untrained_rektnet_l2(dev)
+            log(f"train_to_map rektnet: held-out L2 {got['kpt_l2_f32']!r} after {n} steps, "
+                f"{before!r} untrained (the tool's seed and crops)")
+            check(got["kpt_l2_f32"] < 0.5 * before,
+                  "train_to_map rektnet: the held-out L2 did not fall below half the "
+                  "untrained model's")
+    log(f"export/hyper seconds by part: {({k: round(v, 1) for k, v in timings.items()})} "
+        f"on {smi}")
+
+
 def main() -> int:
     # the port first: without the repository around it, fail before any output
     from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
@@ -2837,6 +3210,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_eval_cli(dev, smi, root, yolo_run, rekt_pt)
         log(f"phase eval_cli: {time.perf_counter() - t0:.1f} s on {smi}")
+        t0 = time.perf_counter()
+        phase_export_hyper(dev, smi, root, yolo_run, rekt_pt)
+        log(f"phase export_hyper: {time.perf_counter() - t0:.1f} s on {smi}")
     check("jax" not in sys.modules, "jax was imported")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

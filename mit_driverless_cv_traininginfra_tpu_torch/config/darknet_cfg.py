@@ -123,6 +123,11 @@ class NetConfig:
     nms_thresh: float
     iou_thresh: float
 
+    def onnx_name(self, config_path: str) -> str:
+        """The exported model's file name: ``<cfg stem>_<width><onnx_height>.onnx``."""
+        stem = os.path.basename(config_path).split(".")[0]
+        return f"{stem}_{self.width}{self.onnx_height}.onnx"
+
 
 @dataclasses.dataclass(frozen=True)
 class NetworkSpec:

@@ -44,13 +44,14 @@ def conv2d(w, b, stride: int = 1, padding: int = 0,
     return conv
 
 
-def soft_argmax_2d(hm_logits):
+def soft_argmax_2d(hm_logits, points_dtype=None):
     """Fused flat softmax + soft-argmax over (B, K, H, W) logits →
-    (points (B, K, 2) xy in [0, 1) in the logits dtype, probs (B, K, H, W)).
-    Runs kernel K2 (``fused_softargmax``)."""
+    (points (B, K, 2) xy in [0, 1) in ``points_dtype``, by default the
+    logits dtype, probs (B, K, H, W)). Runs kernel K2
+    (``fused_softargmax``), whose points are f32."""
     b, k, h, w = hm_logits.shape
     pts, probs = fused_softargmax(hm_logits.reshape(b * k, h, w))
-    return (pts.reshape(b, k, 2).to(hm_logits.dtype),
+    return (pts.reshape(b, k, 2).to(points_dtype or hm_logits.dtype),
             probs.reshape(b, k, h, w))
 
 
@@ -279,16 +280,24 @@ class KeypointNet(nn.Module):
             _TrainResBlock(params[f"res{i}"], state[f"res{i}"]) for i in range(1, 5))
         self.out = _Conv(params["out"])
 
-    def forward(self, x, train: bool = False, dtype=torch.float32):
-        """x (B, H, W, C) NHWC crops in [0, 1] → (heatmap probs (B, K, H,
-        W), points (B, K, 2)), both in ``dtype``. The parameters are cast
-        to ``dtype`` for the compute (f32 masters); ``train`` normalises
-        with batch statistics and updates the running stats in place."""
+    def logits(self, x, train: bool = False, dtype=torch.float32):
+        """x (B, H, W, C) NHWC crops in [0, 1] → the raw heatmap logits (B,
+        K, H, W) in ``dtype`` (the exported ``onnx_mode`` graph's output).
+        The parameters are cast to ``dtype`` for the compute (f32 masters);
+        ``train`` normalises with batch statistics and updates the running
+        stats in place."""
         h = x.to(dtype).permute(0, 3, 1, 2)
         h = F.relu(self.bn(self.conv(h, dtype, padding=3), dtype, train))
         for blk in (self.res1, self.res2, self.res3, self.res4):
             h = blk(h, dtype, train)
-        points, probs = soft_argmax_2d(self.out(h, dtype))  # logits (B, K, H, W)
+        return self.out(h, dtype)
+
+    def forward(self, x, train: bool = False, dtype=torch.float32,
+                points_dtype=None):
+        """:meth:`logits`, then the flat softmax and soft-argmax: (heatmap
+        probs (B, K, H, W) in ``dtype``, points (B, K, 2) in
+        ``points_dtype``, by default ``dtype``)."""
+        points, probs = soft_argmax_2d(self.logits(x, train, dtype), points_dtype)
         return probs, points
 
     def trees(self):

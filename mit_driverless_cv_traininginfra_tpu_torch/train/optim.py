@@ -7,12 +7,21 @@
 
 Weight decay is L2 in the gradient (``torch.optim``'s ``weight_decay``),
 which is where the JAX package's ``optax.add_decayed_weights`` puts it,
-before Adam. The schedules are host-side scalars written into the param
-groups between epochs (:func:`set_lr`).
+before Adam. The global-norm clip is ``optax.clip_by_global_norm``'s
+formula in its order (:func:`clip_by_global_norm`). The schedules are
+host-side scalars written into the param groups between epochs or steps
+(:func:`set_lr`); :func:`linear_schedule`, :func:`cosine_decay_schedule`
+and :func:`join_schedules` are optax's, evaluated in f32 on the host.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import math
+from typing import Callable, Sequence
+
+import numpy as np
 import torch
 
 
@@ -37,12 +46,37 @@ def make_optimizer(params, kind: str = "Adam", lr: float = 1e-3,
     return opt
 
 
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: ``sqrt(Σ_leaves Σ g²)`` in f32, each leaf
+    summed on its own and the leaf sums added in order from 0. Each leaf's
+    own sum follows its backend's order (XLA's, torch's CPU or CUDA
+    reduction), so the norm may differ from optax's in its last bits."""
+    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` in place on ``grads``: only where
+    ``norm ≥ max_norm`` (:func:`global_norm`) each gradient becomes
+    ``g / norm · max_norm``, divided, then multiplied. No host read: the
+    test runs on the device and picks the divisor and the factor, which
+    are 1 where the norm is below the limit (``g / 1 · 1`` is ``g``); two
+    batched launches then scale every gradient."""
+    if not grads:
+        return
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, max_norm)))
+
+
 def optimizer_step(opt: torch.optim.Optimizer) -> None:
-    """Clip the gradients' global norm to ``opt.grad_clip`` (when set),
-    then take the optimizer's step."""
+    """Clip the gradients' global norm to ``opt.grad_clip`` (when set;
+    :func:`clip_by_global_norm`), then take the optimizer's step."""
     if getattr(opt, "grad_clip", 0.0):
-        torch.nn.utils.clip_grad_norm_(
-            [p for g in opt.param_groups for p in g["params"]], opt.grad_clip)
+        clip_by_global_norm([p.grad for g in opt.param_groups for p in g["params"]
+                             if p.grad is not None], opt.grad_clip)
     opt.step()
 
 
@@ -63,3 +97,70 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:
     for group in opt.param_groups:
         group["lr"] = lr
     return opt
+
+
+# ---------------------------------------------------------------------------
+# optax's schedules on the host, in f32 (the step count is an int32 there)
+# ---------------------------------------------------------------------------
+
+Schedule = Callable[[int], float]
+_f32 = np.float32
+_libm = ctypes.CDLL(ctypes.util.find_library("m"))
+_libm.cosf.restype = ctypes.c_float
+_libm.cosf.argtypes = [ctypes.c_float]
+
+
+def _cosf(x) -> np.float32:
+    # XLA:CPU's f32 cosine is the C library's cosf; a cos in f64, rounded,
+    # differs from it in the last bit on some arguments
+    return _f32(_libm.cosf(float(x)))
+
+
+def constant_schedule(value: float) -> Schedule:
+    """``optax.constant_schedule``."""
+    return lambda count: float(_f32(value))
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Schedule:
+    """``optax.linear_schedule``: ``(I − E)·(1 − t/T) + E`` over the first
+    ``T`` steps, then ``E``; each operation in f32 as optax's unjitted
+    graph rounds it."""
+    if transition_steps <= 0:
+        return lambda count: float(init_value)
+
+    def schedule(count: int) -> float:
+        t = min(max(count, 0), transition_steps)
+        frac = _f32(1) - _f32(t) / _f32(transition_steps)
+        return float(_f32(init_value - end_value) * frac + _f32(end_value))
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Schedule:
+    """``optax.cosine_decay_schedule`` (alpha 0, exponent 1): ``I·½(1 +
+    cos(π·t/T))``, ``t`` capped at ``T``, each operation in f32."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive decay_steps, "
+                         f"got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        t = _f32(min(count, decay_steps))
+        cd = _f32(0.5) * (_f32(1) + _cosf(_f32(math.pi) * t / _f32(decay_steps)))
+        return float(_f32(init_value) * cd)
+
+    return schedule
+
+
+def join_schedules(schedules: Sequence[Schedule], boundaries: Sequence[int]) -> Schedule:
+    """``optax.join_schedules``: past each boundary the next schedule runs,
+    on the count since that boundary."""
+
+    def schedule(count: int) -> float:
+        out = schedules[0](count)
+        for boundary, fn in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = fn(count - boundary)
+        return out
+
+    return schedule

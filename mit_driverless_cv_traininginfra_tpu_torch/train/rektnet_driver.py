@@ -11,8 +11,10 @@ at the end, the per-keypoint L2 report and the sweep layer's score file.
 2), names, original sizes)`` as numpy arrays; :func:`main` builds them
 from the label CSV and the crops on disk (``data/rektnet_data.py``), as
 the JAX package's ``main`` does, on the card unless the caller asks for
-the CPU. Not ported: the ONNX export of the best model (ROADMAP Queue 1
-item 6; the loop says that it skips it) and several devices (item 8).
+the CPU. On each new best validation loss (with ``save_checkpoints``)
+the loop writes the model as ``<output_path>/best_keypoints_<H><W>.onnx``
+(``export/pt_to_onnx.py``). Not ported: several devices (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.data.rektnet_data import (
 )
 from mit_driverless_cv_traininginfra_tpu_torch.data.loader import DataLoader
 from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
+from mit_driverless_cv_traininginfra_tpu_torch.export.pt_to_onnx import export_rektnet_onnx
 from mit_driverless_cv_traininginfra_tpu_torch.models import rektnet
 from mit_driverless_cv_traininginfra_tpu_torch.ops.heatmap import (
     KPT_NAMES,
@@ -128,8 +131,9 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
     raises) and ``opt``. ``mixed_precision`` trains in bf16 compute;
     ``device_targets`` makes Gaussian heatmap targets on the device.
     Writes ``<output_path>/<epoch>_loss_<val>.pt`` (the model, its Adam
-    state and the epoch) every ``checkpoint_interval`` epochs. Returns ``(best validation loss, best epoch, last epoch
-    run)``."""
+    state and the epoch) every ``checkpoint_interval`` epochs, and
+    ``best_keypoints_<H><W>.onnx`` at each new best validation loss.
+    Returns ``(best validation loss, best epoch, last epoch run)``."""
     device = resolve_device(device)
     os.makedirs(output_path, exist_ok=True)
     loss_kw = dict(loss_type=loss_type, include_geo=include_geo,
@@ -157,7 +161,12 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
         if val_loss < best_val_loss:
             best_val_loss, best_epoch, tolerance = val_loss, epoch, 0
             if save_checkpoints:
-                print("ONNX export module unavailable; skipping export")
+                params, state = model.trees()
+                onnx_uri = os.path.join(
+                    output_path, f"best_keypoints_{input_size[0]}{input_size[1]}.onnx")
+                export_rektnet_onnx(params, state, onnx_uri, input_size=input_size,
+                                    num_kpt=params["out"]["w"].shape[0])
+                print(f"Saving ONNX model to {onnx_uri}")
         else:
             tolerance += 1
 

@@ -107,13 +107,21 @@ def rektnet_train_step(model, opt, images, target_hm, target_points,
     ``synth_target_sigma > 0`` ignores ``target_hm`` and makes unit-sum
     Gaussian targets around ``target_points`` on the device. In f32 the
     step turns TF32 off (cuDNN and matmul flags), so f32 is f32 on the
-    card."""
+    card.
+
+    The loss takes K2's points in f32 whatever the compute dtype. The JAX
+    step rounds them to bf16 first, where points that the net spreads by
+    less than a bf16 step (2^-9 below 0.5) coincide: a zero edge vector,
+    at which ``F.normalize``'s clamp gives the geometric loss a gradient
+    of 1/eps = 1e12. Both packages then take gradients some 1e5 times the
+    f32 step's, whose square Adam's second moment keeps for thousands of
+    steps, and B=256 bf16 training stalls."""
     dtype = _compute_dtype(compute_dtype)
     if synth_target_sigma > 0:
         target_hm = gaussian_heatmaps(target_points, images.shape[1],
                                       images.shape[2], sigma=synth_target_sigma)
     opt.zero_grad(set_to_none=True)
-    hm, pts = model(images, train=True, dtype=dtype)
+    hm, pts = model(images, train=True, dtype=dtype, points_dtype=torch.float32)
     loc, geo, total = cross_ratio_loss(
         hm.float(), pts.float(), target_hm, target_points, loss_type=loss_type,
         include_geo=include_geo, geo_loss_gamma_horz=geo_loss_gamma_horz,

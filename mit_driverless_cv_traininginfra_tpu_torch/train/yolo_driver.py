@@ -14,17 +14,17 @@ batch with the reference's log line, and every ``checkpoint_interval``
 epochs: the ``.weights`` file, the full train state, the validation loss,
 the best loss into ``<log_dir>/result.txt`` (the sweep layer's score
 channel) and the validation mAP; early stop after ``val_tolerance`` checks
-without improvement past ``min_epochs``. Loaders yield ``(uris, images
+without improvement past ``min_epochs``, which writes the model as
+``<output_path>/<cfg stem>_<width><onnx_height>.onnx``
+(``export/yolo2onnx.py``). Loaders yield ``(uris, images
 (B, H, W, C), labels (B, T, 5))`` batches, numpy or (a pool's images)
 tensors on the device; numpy reaches the card through
 ``data.loader.prefetch_to_device``. With ``device_aug`` the labels are
 pixel corners and the step augments on the device
 (``train.steps.yolo_train_step_device_aug``).
 
-Not here yet: the space-to-depth training stem (``packed_stem``), several
-devices (``n_devices``), the visualisation renders (``vis_batch``) and the
-ONNX export at an early stop (which prints, as the JAX driver does
-without its export module, that it skips).
+Not here yet: the space-to-depth training stem (``packed_stem``) and
+several devices (``n_devices``).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.data.loader import (
 )
 from mit_driverless_cv_traininginfra_tpu_torch.data.yolo_dataset import ImageLabelDataset
 from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
+from mit_driverless_cv_traininginfra_tpu_torch.export.yolo2onnx import export_yolo_onnx
 from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import (
     TrainDarknet,
     init_params,
@@ -182,7 +183,7 @@ def validate_map(*, data_loader: Iterable, model, device="cuda", top_k: int = 20
 
 
 def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
-               device="cuda", num_epochs: int = 100, num_steps: int = 10**9,
+               model_cfg: str, device="cuda", num_epochs: int = 100, num_steps: int = 10**9,
                checkpoint_interval: int = 1, lr: float = 1e-3,
                gamma: float = 0.95, lr_warmup_steps: int = 0,
                xy_loss: float = 2.0, wh_loss: float = 1.6,
@@ -205,7 +206,9 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
     generator on ``device`` seeded ``seed · 7919 + epoch`` each epoch, with
     ``aug_flags`` (``lr_flip``, ``jitter``, ``noise``; the step's defaults
     when None). ``train_dataset``, when given, has ``set_epoch(epoch)``
-    called at the top of each epoch (fresh per-item draws)."""
+    called at the top of each epoch (fresh per-item draws). The early stop
+    writes ``spec.net.onnx_name(model_cfg)`` under ``output_path``:
+    ``model_cfg`` is the path of the cfg ``model`` was built from."""
     device = resolve_device(device)
     spec = model.spec
     os.makedirs(output_path, exist_ok=True)
@@ -263,7 +266,8 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
             if val_loss_counter == val_tolerance:
                 print(f"Validation loss stopped decreasing over the last "
                       f"{val_tolerance} checkpoints, creating onnx file")
-                print("ONNX export module unavailable; skipping export")
+                export_yolo_onnx(spec, *model.trees(),
+                                 os.path.join(output_path, spec.net.onnx_name(model_cfg)))
                 break
     if evaluate:
         validate_map(data_loader=val_loader, model=model, device=device)
@@ -369,4 +373,4 @@ def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
         # their own flags in both modes
         aug_flags=dict(lr_flip=bool(lr_flip), jitter=bool(augment_hsv or data_aug),
                        noise=bool(noise)),
-        seed=seed, train_dataset=train_ds)
+        seed=seed, train_dataset=train_ds, model_cfg=model_cfg)

@@ -17,9 +17,13 @@ RektNet disk path, the visualisations, the evaluation CLIs, the port's
 dataset and evaluation tools and ``chip_smoke.py``, reads ``.npy`` crops
 through ``ConeDataset``, draws and writes a ``utils/vis`` render, trains
 RektNet one epoch from disk, and runs the detect, pipeline and validate
-CLIs and both evaluation tools on the CPU. An AST walk over the port's
-files and ``chip_smoke.py`` finds no import of the JAX package and no
-path into its directory."""
+CLIs and both evaluation tools on the CPU. A fourth, with ``jax``,
+``optax``, PIL, OpenCV and pandas blocked, exports both models and their
+CLIs' files, runs them through the numpy evaluator, runs a TPE study and
+both sweep CLIs (trials recorded, not run) and both families of
+``tools/train_to_map.py`` at tiny sizes. An AST walk over the port's files
+and ``chip_smoke.py`` finds no import of ``jax``, ``optax`` or the JAX
+package and no path into the JAX package's directory."""
 
 import ast
 import os
@@ -318,17 +322,21 @@ def test_disk_rektnet_vis_and_eval_clis_need_no_jax_pil_cv2_or_pandas():
 _KERNEL_REF = re.compile(rf"{JAX_PKG}/[\w/]+\.py:\d+")
 
 
+FORBIDDEN_ROOTS = (JAX_PKG, "jax", "jaxlib", "optax")
+
+
 def _jax_package_uses(tree: ast.AST):
-    """Imports of the JAX package, and string constants that name it or a
-    path inside it (as ``importlib``, ``open`` or a ``Path`` would take
-    them), in one parsed file."""
+    """Imports of the JAX package, ``jax``, ``jaxlib`` or ``optax``, and
+    string constants that name the JAX package or a path inside it (as
+    ``importlib``, ``open`` or a ``Path`` would take them), in one parsed
+    file."""
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                if alias.name == JAX_PKG or alias.name.startswith(JAX_PKG + "."):
+                if alias.name.split(".")[0] in FORBIDDEN_ROOTS:
                     yield node.lineno, f"import {alias.name}"
         elif isinstance(node, ast.ImportFrom) and node.module:
-            if node.module == JAX_PKG or node.module.startswith(JAX_PKG + "."):
+            if node.module.split(".")[0] in FORBIDDEN_ROOTS:
                 yield node.lineno, f"from {node.module} import ..."
         elif isinstance(node, ast.Constant) and isinstance(node.value, str):
             v = node.value.strip()
@@ -348,6 +356,11 @@ def _port_files():
 def test_no_file_of_the_port_reaches_into_the_jax_package():
     files = _port_files()
     assert len(files) > 30 and Path(REPO, "chip_smoke.py") in files
+    names = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
+    assert {"export/onnx_writer.py", "export/onnx_eval.py", "export/yolo2onnx.py",
+            "export/pt_to_onnx.py", "hyper/search.py", "cli/yolo2onnx.py",
+            "cli/pt_to_onnx.py", "cli/yolo_hyper.py", "cli/rektnet_hyper.py",
+            "tools/train_to_map.py"} <= names
     found = {str(p.relative_to(REPO)): hits for p in files
              if (hits := list(_jax_package_uses(ast.parse(p.read_text(), str(p)))))}
     assert not found, found
@@ -356,5 +369,75 @@ def test_no_file_of_the_port_reaches_into_the_jax_package():
 def test_the_walk_finds_what_it_looks_for():
     src = (f"import {JAX_PKG}.config\nfrom {JAX_PKG}.ops import x\n"
            f"p = root / '{JAX_PKG}'\nq = '{JAX_PKG}/data/synthetic.py'\n"
-           f"r = '{JAX_PKG}/ops/pallas_crop.py:173'\n")
-    assert sorted(line for line, _ in _jax_package_uses(ast.parse(src))) == [1, 2, 3, 4]
+           f"r = '{JAX_PKG}/ops/pallas_crop.py:173'\n"
+           "import jax.numpy as jnp\nfrom optax import adam\nimport jaxlib\n"
+           "import jaxtyping, optaxx\n")
+    assert sorted(line for line, _ in _jax_package_uses(ast.parse(src))) == [1, 2, 3, 4, 6,
+                                                                              7, 8]
+
+
+EXPORT_HYPER_SCRIPT = r"""
+import sys
+for name in ("jax", "optax", "PIL", "cv2", "pandas"):
+    sys.modules[name] = None  # an import of any of them raises ImportError
+import contextlib, importlib.util, io, json, os, tempfile
+import numpy as np, torch
+from mit_driverless_cv_traininginfra_tpu_torch.cli import (pt_to_onnx, rektnet_hyper,
+    yolo2onnx, yolo_hyper)
+from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import load_network_spec
+from mit_driverless_cv_traininginfra_tpu_torch.export import onnx_writer
+from mit_driverless_cv_traininginfra_tpu_torch.export.onnx_eval import run_model
+from mit_driverless_cv_traininginfra_tpu_torch.hyper import search
+from mit_driverless_cv_traininginfra_tpu_torch.models import darknet, rektnet
+from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import save_rektnet_pt
+
+spec = load_network_spec(REPO + "/tests/fixtures/tiny_test.cfg", vanilla_anchor=True)
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()), \
+        contextlib.redirect_stderr(io.StringIO()):
+    os.chdir(tmp)
+    darknet.save_darknet_weights(spec, *darknet.init_params(spec, torch.Generator()), "y.weights")
+    yolo2onnx.main(["--cfg_name", REPO + "/tests/fixtures/tiny_test.cfg",
+                    "--weights_name", "y.weights", "--output", "y.onnx"])
+    save_rektnet_pt("r.pt", rektnet.KeypointNet(*rektnet.init(torch.Generator(), net_size=4)))
+    pt_to_onnx.main(["--model", "r.pt"])
+    parsed = onnx_writer.parse_model(open("y.onnx", "rb").read())
+    x = np.zeros((1, 3, spec.net.onnx_height, spec.net.width), np.float32)
+    assert len(run_model(parsed, {"000_net": x})) == 2
+    out = run_model(onnx_writer.parse_model(open("r.onnx", "rb").read()),
+                    {"input": np.zeros((1, 3, 80, 80), np.float32)})["out"]
+    assert out.shape == (1, 7, 80, 80)
+    study = search.create_study("s", seed=0)
+    study.optimize(lambda t: t.suggest_uniform("x", 0, 1), n_trials=2)
+    assert len(study.trials) == 2
+    for cli, argv in ((yolo_hyper, ["--model_cfg", "m.cfg", "--num_trials", "1"]),
+                      (rektnet_hyper, ["--num_trials", "1"])):
+        cli.run_cli_trial = lambda arglist, score_file: 1.0
+        assert cli.main(argv + ["--device", "cpu"]) == 0
+    spec_ = importlib.util.spec_from_file_location(
+        "ttm", REPO + "/mit_driverless_cv_traininginfra_tpu_torch/tools/train_to_map.py")
+    ttm = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(ttm)
+    ttm.RK_POOL, ttm.RK_EVAL, ttm.RK_CALIB = 8, 4, 4
+    assert ttm.main(["--steps", "1", "--size", "64", "--pool", "2", "--batch", "1",
+                     "--eval-n", "2", "--device", "cpu"]) == 0
+    assert ttm.main(["--family", "rektnet", "--steps", "3", "--batch", "2",
+                     "--device", "cpu"]) == 0
+    os.chdir(REPO)
+for m in ("export.onnx_eval", "export.yolo2onnx", "export.pt_to_onnx", "hyper.search",
+          "models.quantize", "train.steps"):
+    assert "mit_driverless_cv_traininginfra_tpu_torch." + m in sys.modules, m
+found = [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "optax", "PIL", "cv2", "pandas")
+    or m.startswith("mit_driverless_cv_traininginfra_tpu."))]
+assert not found, found
+print("export-hyper ok")
+"""
+
+
+def test_export_hyper_and_train_to_map_need_no_jax_or_optax():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", f"REPO = {REPO!r}\n" + EXPORT_HYPER_SCRIPT],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "export-hyper ok" in proc.stdout

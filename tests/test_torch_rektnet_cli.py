@@ -140,7 +140,9 @@ def test_main_two_epochs_equal_jax(crops, tmp_path, monkeypatch):
     assert [k for k, _ in got] == [k for k, _ in want] == ["Training", "Validation"] * 2
     for (_, a), (_, b) in zip(got, want):
         assert abs(a - b) <= 1e-5 * abs(b), (got, want)
-    assert "ONNX export module unavailable; skipping export" in ptext
+    # each new best validation loss writes the best model as ONNX
+    onnx = tmp_path / "p" / "best_keypoints_8080.onnx"
+    assert f"Saving ONNX model to {onnx}" in ptext and onnx.exists()
     pt = [f for f in os.listdir(tmp_path / "p") if f.startswith("1_loss_")]
     assert len(pt) == 1
     jp, js = jrektnet.load_torch_checkpoint(str(tmp_path / "p" / pt[0]))

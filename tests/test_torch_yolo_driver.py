@@ -37,7 +37,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.train import optim, yolo_driver
 from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import load_yolo_state
 from mit_driverless_cv_traininginfra_tpu_torch.utils import logger, profiling
 
-from _torch_port import gap_threshold, tiny_port_spec, tiny_spec, to_jnp
+from _torch_port import TINY_CFG, gap_threshold, tiny_port_spec, tiny_spec, to_jnp
 
 B = 4
 
@@ -63,7 +63,7 @@ def _train(tmp, model, opt, **kw):
     with contextlib.redirect_stdout(out):
         val = yolo_driver.train_yolo(
             model, opt, _batches(1, 2), _batches(2, 1), device="cpu",
-            output_path=str(tmp / "out"), log_dir=str(tmp / "logs"), lr=1e-3,
+            output_path=str(tmp / "out"), model_cfg=TINY_CFG, log_dir=str(tmp / "logs"), lr=1e-3,
             gamma=0.95, checkpoint_interval=1, val_tolerance=99, min_epochs=3,
             **kw)
     return val, out.getvalue()
