@@ -126,11 +126,29 @@ synthetic scenes, and checks its hand-written CUDA kernels:
    backward counted), a ``cli/yolo_train`` epoch stopped by
    ``--val_tolerance 0`` whose ONNX parses; ``cli/rektnet_hyper`` with two
    one-epoch trials in a subprocess (two completed trials, finite scores,
-   seconds a trial); ``tools/train_to_map.py`` for YOLO (300 bf16 steps at
+   seconds a trial); ``tools/train_to_map.py`` for YOLO (150 bf16 steps at
    B=32, mAP at conf 0.8 of the f32 and int8 models on 64 scenes; no
-   K1-K5) and RektNet (300 steps at B=256; K2 and its backward once a
+   K1-K5) and RektNet (150 steps at B=256; K2 and its backward once a
    step; the held-out L2 under half the untrained model's), both JSON
-   lines printed.
+   lines printed;
+15. several devices (``phase_multi_device``, each part's seconds
+   printed): the DP YOLOv3-416 (B=4) and RektNet-16 (B=32) steps, f32 SGD,
+   five of each, at world size 1 over NCCL and at world size 2 over
+   ``gloo`` with both ranks on this card (NCCL takes one rank a GPU;
+   ``gloo`` stages each collective through the host), against the same
+   steps in this process on the whole batch after steps 1 and 3 (losses,
+   parameters, running stats, at ``DP_*``'s bounds, cuDNN off on both
+   sides; a reordered batch in one process printed as the noise floor),
+   step ms with cuDNN on and off; the bf16 and int8
+   ``TwoStageServer(mesh=make_mesh(1))`` graphed against the server
+   without a mesh, every output of one request sequence bit-equal,
+   frames/s of both, and served eagerly, K1-K4 once a request by their
+   wrappers;
+   ``TwoStagePP`` with both stages here against the fused pipeline on two
+   microbatches, one over capacity (masks, boxes, scores bit-equal,
+   keypoints within 1e-3 px; K1-K3 once a microbatch); and ``python -m
+   …parallel.dryrun --n_devices 1`` (seven OK lines). Nothing here runs
+   on several GPUs: the card's machine has one.
 
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
@@ -138,7 +156,10 @@ its own path's run (counters set to 0 just before it; the K1-K5, K2
 backward and ``tail_conv`` rows also carry ``device_ms`` and
 ``kernels_per_call``): K1-K4 over the
 eager int8 server's requests (a replay calls no wrapper), K5 over its stage path, the four probe kernels
-over the probe path, K2's backward over the training steps. ``bound_ms``
+over the probe path, K2's backward over the training steps; K1-K4 and
+K2's backward also carry ``launches_multi_device``, their counts on phase
+15's paths (rank 0's wrappers in the DP steps, over the eager mesh
+servers' requests and over ``TwoStagePP``). ``bound_ms``
 is the larger of the row's bytes over 3.35 TB/s and its operations over
 the card's peak for their type. Any failure
 raises: exit code ≠ 0 and no result line. Imports nothing of JAX.
@@ -2914,8 +2935,10 @@ def phase_eval_cli(dev, smi, root: str, yolo_run: dict, rekt_pt: str) -> None:
 # (map's) largest difference over its largest |value| (f32 sums of up to
 # 9216 terms a conv, in other orders, through 75 layers)
 EXPORT_REL = 1e-4
-TTM_YOLO = ["--steps", "300", "--batch", "32", "--eval-n", "64"]
-TTM_REKTNET = ["--family", "rektnet", "--steps", "300"]
+# 150 steps each: the checks ask a finite, in-range mAP and RektNet's
+# held-out L2 under half the untrained model's, not a trained model
+TTM_YOLO = ["--steps", "150", "--batch", "32", "--eval-n", "64"]
+TTM_REKTNET = ["--family", "rektnet", "--steps", "150"]
 
 
 def onnx_vs_card(path: str, inputs: dict, want: list, what: str) -> dict:
@@ -3158,6 +3181,271 @@ def phase_export_hyper(dev, smi, root: str, yolo_run: dict, rekt_pt: str) -> Non
         f"on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: several devices (parallel/, infer/pp.py)
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 5                 # compared after steps 1 and 3; timed over 3-5
+DP_YOLO_B, DP_RK_B = 4, 32   # global batches (two ranks: 2 and 16 a rank)
+# DP against one process on the whole batch, f32 SGD, cuDNN off on both
+# sides (dp_drift): each step's loss and components within 5e-4 of the
+# largest; each parameter within 2e-2 of the largest change the
+# one-process run made by that step; each running stat within 5e-4 of its
+# scale. On an NVIDIA H100 80GB HBM3 at 700 W this phase read at most
+# 1.14e-4, 4.95e-3 and 9.1e-5 at world size 2 and 0 (bit-equal) at world
+# size 1; the one-process run on the batch with its halves swapped reads
+# 4.7e-5, 5.3e-3 and 6.1e-5. With cuDNN on, its algorithm picks depend on
+# the batch size, so a rank's half batch sums in another algorithm: RektNet
+# then parted by 1.1e-2 of the update after three steps at world size 2,
+# so the cuDNN runs are timed and their drift printed, not held
+DP_LOSS_RTOL, DP_PARAM_REL, DP_STAT_REL = 5e-4, 2e-2, 5e-4
+
+
+def dp_jobs() -> list:
+    """YOLOv3-416 (one class) and RektNet-16 training jobs for
+    ``parallel.dryrun.run_jobs``: f32 SGD without momentum at lr 1e-4, small
+    enough that three steps stay near the reordered batch's run (the
+    printed floor), each with cuDNN off (held to one process) and on
+    (timed). RektNet
+    trains without the geometric term: on a random RektNet the soft-argmax
+    points sit close together, and normalising their short edge vectors
+    amplifies rounding. The cross-batch geometric loss under a mesh is held
+    on the CPU to JAX's 2-device step and here by the dry run's one-step
+    check."""
+    from mit_driverless_cv_traininginfra_tpu_torch import convert
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
+
+    spec = yolo_spec()
+    rng = np.random.default_rng(16)
+    imgs, targets = synthetic.yolo_batch(rng, DP_YOLO_B, SIZE)
+    crops, pts = synthetic.rektnet_batch(rng, DP_RK_B)
+    base = [dict(family="yolo", spec=spec, trees=convert.init_darknet_np(spec, rng),
+                 batch=(imgs, targets), step_kw=dict(YOLO_KW, compute_dtype="float32")),
+            dict(family="rektnet", trees=convert.init_rektnet_np(rng),
+                 batch=(crops, None, pts),
+                 step_kw=dict(TRAIN_KW, include_geo=False, compute_dtype="float32"))]
+    return [dict(job, lr=1e-4, steps=DP_STEPS, keep=(1, 3), cudnn=cudnn)
+            for cudnn in (False, True) for job in base]
+
+
+def dp_drift(got: dict, want: dict, before) -> dict:
+    """How far one run of a job is from another: the worst loss difference
+    over the steps relative to the largest |loss value| of that step, and
+    after each kept step the worst parameter difference relative to the
+    largest change the reference run made, the worst running-stat
+    difference relative to its largest |value|."""
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            return {k2: v for k, t in tree.items() for k2, v in leaves(t, f"{path}/{k}").items()}
+        return {path: np.asarray(tree, np.float64)}
+
+    out = {"loss_rel": max(float(np.abs(g - w).max() / np.abs(w).max())
+                           for g, w in zip(got["losses"], want["losses"]))}
+    p0 = leaves(before[0])
+    for step in sorted(want["trees"]):
+        gp, wp = leaves(got["trees"][step][0]), leaves(want["trees"][step][0])
+        upd = max(float(np.abs(wp[k] - p0[k]).max()) for k in wp)
+        out[f"param_rel_{step}"] = max(float(np.abs(gp[k] - wp[k]).max()) for k in wp) / upd
+        gs, ws = leaves(got["trees"][step][1]), leaves(want["trees"][step][1])
+        out[f"stat_rel_{step}"] = max(float(np.abs(gs[k] - ws[k]).max())
+                                      / max(float(np.abs(ws[k]).max()), 1e-12) for k in ws)
+    return out
+
+
+def dp_check(label: str, drift: dict) -> None:
+    check(drift["loss_rel"] <= DP_LOSS_RTOL, f"dp {label}: losses differ")
+    check(all(v <= DP_PARAM_REL for k, v in drift.items() if k.startswith("param")),
+          f"dp {label}: parameters differ")
+    check(all(v <= DP_STAT_REL for k, v in drift.items() if k.startswith("stat")),
+          f"dp {label}: running stats differ")
+
+
+def phase_dp_steps(dev, smi, launches: dict) -> None:
+    """The DP YOLO and RektNet steps at world size 1 over NCCL and at world
+    size 2 over gloo with both ranks on this card (NCCL takes one rank a
+    GPU), each against the same steps in this process on the whole batch.
+    Step times on the host clock, the device synchronised, over steps 3-5.
+    The gloo run stages every collective through the host: a correctness
+    path, not a speed figure of anything users run."""
+    from mit_driverless_cv_traininginfra_tpu_torch.parallel.dryrun import run_jobs
+    from mit_driverless_cv_traininginfra_tpu_torch.parallel.launch import launch
+
+    jobs = dp_jobs()
+    names = [f"{j['family']} cudnn {'on' if j['cudnn'] else 'off'}" for j in jobs]
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False   # as the ranks run
+    t0 = time.perf_counter()
+    one = run_jobs(None, jobs, dev)
+    # the noise floor: the batch's halves swapped in one process, another
+    # sum order, as DP's
+    held = [i for i, j in enumerate(jobs) if not j["cudnn"]]
+    swapped = run_jobs(None, [dict(jobs[i], batch=tuple(
+        None if a is None else np.concatenate(np.split(np.asarray(a), 2)[::-1])
+        for a in jobs[i]["batch"])) for i in held], dev)
+    for i, run in zip(held, swapped):
+        log(f"dp {names[i]} one process, batch halves swapped, against in order: "
+            f"{json.dumps(dp_drift(run, one[i], jobs[i]['trees']))}")
+    torch.backends.cudnn.benchmark = bench
+    for name, (devices, backend) in {"nccl_ws1": ([dev], "nccl"),
+                                     "gloo_ws2": ([dev, dev], "gloo")}.items():
+        t1 = time.perf_counter()
+        got = launch(run_jobs, devices, args=(jobs,), backend=backend)
+        log(f"dp {name}: launch and {DP_STEPS} steps of each job in "
+            f"{time.perf_counter() - t1:.1f} s")
+        for label, job, g, w in zip(names, jobs, got, one):
+            drift = dp_drift(g, w, job["trees"])
+            log(f"dp {label} {name} against one process: {json.dumps(drift)}; step ms "
+                f"(3-5) {g['ms'][2:]!r} against one process's {w['ms'][2:]!r} on {smi}")
+            if not job["cudnn"]:
+                dp_check(f"{label} {name}", drift)
+            if job["family"] == "rektnet":
+                check(all(v == DP_STEPS for v in g["launches"].values()),
+                      f"dp {name}: K2 launches {g['launches']} in {DP_STEPS} steps")
+                for k, v in g["launches"].items():
+                    launches[k][f"dp_{name}_rank0"] = (
+                        launches[k].get(f"dp_{name}_rank0", 0) + v)
+    log(f"phase dp_steps: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_serve_mesh(dev, smi, frames_np, models: dict, launches: dict) -> None:
+    """``TwoStageServer(mesh=make_mesh(1))``, bf16 and int8, graphed, against
+    the server without a mesh: one request sequence (a short batch of 6,
+    then full batches) to both, every output bit-equal, frames/s of each.
+    Then the same mesh server served eagerly (``cuda_graphs=False``), its
+    wrappers' counts set to 0 just before 8 requests and read just after:
+    each path kernel once a request (a replay calls no wrapper, and on an
+    H100 CUPTI's record of the replays came back one K4 launch short three
+    takes running)."""
+    from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import make_mesh
+
+    for label, (yolo, rekt, thresh) in models.items():
+        frames = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
+        servers = {"no mesh": make_server(yolo, rekt, thresh),
+                   "mesh 1": make_server(yolo, rekt, thresh, mesh=make_mesh(1))}
+        for server in servers.values():
+            server.warmup([B_SERVE], capacities=SERVE_CAPS, frame_dtype=frames.dtype)
+        outs, fps = {}, {}
+        for name, server in servers.items():
+            outs[name] = [server(frames[:6])] + [server(frames) for _ in range(3)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(31):
+                server(frames)
+            torch.cuda.synchronize()
+            fps[name] = 31 * B_SERVE / (time.perf_counter() - t0)
+        same = all(bits_equal(a, b) for x, y in zip(outs["no mesh"], outs["mesh 1"])
+                   for a, b in zip(x, y))
+        log(f"serve mesh {label}: graphed frames/s, mesh of 1 {fps['mesh 1']!r} against "
+            f"no mesh {fps['no mesh']!r}; {len(outs['mesh 1'])} requests bit-equal: {same}; "
+            f"stats {json.dumps({k: servers['mesh 1'].stats()[k] for k in ('graphs', 'replays', 'compiles', 'batch_pads')})} on {smi}")
+        check(same, f"serve mesh {label}: the mesh server differs from the server without one")
+        eager = make_server(yolo, rekt, thresh, graphs=False, mesh=make_mesh(1))
+        eager.warmup([B_SERVE], capacities=SERVE_CAPS, frame_dtype=frames.dtype)
+        same = all(bits_equal(a, b) for a, b in zip(
+            eager._dispatch(frames, B_SERVE, 96), servers["mesh 1"]._dispatch(frames, B_SERVE, 96)))
+        torch.cuda.synchronize()
+        zero_counts()
+        for _ in range(8):
+            eager(frames)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in kernel_wrappers().items()
+                  if k in PATH_KERNELS[label]}
+        log(f"serve mesh {label} eager: 8 requests, wrapper counts {counts}; bucket "
+            f"(8, 96) bit-equal to the graphed mesh server's replay: {same}")
+        check(same and all(v == 8 for v in counts.values()),
+              f"serve mesh {label} eager: counts {counts}, bit-equal {same}")
+        for k, v in counts.items():
+            launches[k][f"serve_mesh1_{label}_eager"] = v
+
+
+def phase_pp(dev, smi, yolo, rekt, frames_np, thresh, launches: dict) -> None:
+    """``TwoStagePP`` with both stages on this card against the fused
+    pipeline on two microbatches of 8 (the second the first flipped), at
+    capacity 64, which the valid detections exceed in at least one:
+    masks, boxes and scores bit-equal, keypoints within 1e-3 px; the
+    wrappers' counts over the microbatches; both timed."""
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import two_stage_pipeline
+    from mit_driverless_cv_traininginfra_tpu_torch.infer.pp import TwoStagePP
+
+    cfg = dict(conf_thresh=thresh, max_det=MAX_DET, crop_capacity=64)
+    x = torch.from_numpy(frames_np).to(dev, torch.bfloat16)
+    micro = [x, x.flip(2).contiguous()]
+    pp = TwoStagePP(yolo, rekt, dev, dev, **cfg)
+    pp(micro)
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = pp(micro)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in kernel_wrappers().items() if k in PATH_KERNELS["bf16"]}
+    check(all(v == len(micro) for v in counts.values()),
+          f"pp: wrapper counts {counts} for {len(micro)} microbatches")
+    for k, v in counts.items():
+        launches[k]["pp"] = v
+    worst, over = 0.0, 0
+    for out, fr in zip(outs, micro):
+        ref = two_stage_pipeline(yolo, rekt, fr, **cfg)
+        check(all(bits_equal(a, b) for a, b in zip(out[:3], ref[:3])),
+              "pp: masks, boxes or scores differ from the fused pipeline")
+        worst = max(worst, max_abs(out.keypoints, ref.keypoints))
+        over += int(ref.mask.sum()) > cfg["crop_capacity"]
+    check(worst <= 1e-3, f"pp: keypoints {worst} px from the fused pipeline's")
+    check(over >= 1, "pp: no microbatch's valid detections exceed the capacity")
+
+    def rate(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return n * len(micro) * B_SERVE / (time.perf_counter() - t0)
+
+    def fused():
+        return [two_stage_pipeline(yolo, rekt, fr, **cfg) for fr in micro]
+
+    # in turns (pp, fused, fused, pp): eager serving rates spread by ~10%
+    fps = [rate(fn) for fn in (lambda: pp(micro), fused, fused, lambda: pp(micro))]
+    log(f"pp on one card: {len(micro)} microbatches of {B_SERVE}, keypoints within {worst!r} "
+        f"px, {over} over capacity; frames/s (eager) TwoStagePP {fps[0]!r}, {fps[3]!r} "
+        f"against fused {fps[1]!r}, {fps[2]!r} on {smi}")
+
+
+def phase_dryrun(smi) -> None:
+    """``python -m …parallel.dryrun`` at world size 1 on this card, in a
+    process of its own: every surface OK."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mit_driverless_cv_traininginfra_tpu_torch.parallel.dryrun",
+         "--n_devices", "1"], capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(line)
+    check(proc.returncode == 0 and sum(ln.endswith(" OK") for ln in lines) == 7,
+          f"dryrun failed (rc {proc.returncode}): {proc.stderr[-2000:]}")
+    log(f"phase dryrun: {time.perf_counter() - t0:.1f} s on {smi}")
+
+
+def phase_multi_device(dev, smi, rows: dict, frames_np, thresh, thresh_q, bundles) -> None:
+    """Phase 15: the DP steps, the mesh servers, ``TwoStagePP`` and the dry
+    run; each kernel row gains ``launches_multi_device``, its counts on
+    these paths."""
+    t0 = time.perf_counter()
+    launches = {k: {} for k in ("roi_crop", "softargmax", "nms_topk", "entry_block",
+                                "softargmax_bwd")}
+    phase_dp_steps(dev, smi, launches)
+    bf16 = build_models(dev, torch.bfloat16)
+    phase_serve_mesh(dev, smi, frames_np, {"bf16": (*bf16, thresh),
+                                           "int8": (*int8_models(bundles, dev), thresh_q)},
+                     launches)
+    phase_pp(dev, smi, *bf16, frames_np, thresh, launches)
+    phase_dryrun(smi)
+    for k, v in launches.items():
+        check(v and all(n > 0 for n in v.values()), f"{k}: not launched on the "
+              f"multi-device paths: {v}")
+        rows[k]["launches_multi_device"] = v
+    log(f"phase multi_device: {time.perf_counter() - t0:.1f} s on {smi}")
+
+
 def main() -> int:
     # the port first: without the repository around it, fail before any output
     from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
@@ -3213,6 +3501,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_export_hyper(dev, smi, root, yolo_run, rekt_pt)
         log(f"phase export_hyper: {time.perf_counter() - t0:.1f} s on {smi}")
+    phase_multi_device(dev, smi, rows, frames_np, thresh, thresh_q, bundles)
     check("jax" not in sys.modules, "jax was imported")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

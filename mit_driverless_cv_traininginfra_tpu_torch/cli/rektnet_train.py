@@ -9,6 +9,9 @@ the port's driver::
 The flags and defaults are the JAX CLI's, plus ``--device`` (``cuda``
 unless the CPU is asked for). While it runs, stdout and stderr are also
 written to ``logs/<study_name>.log`` and ``logs/<study_name>.error``.
+``--n_devices N`` (N > 1) trains on N ranks, one a device
+(``parallel/launch.py``: ``cuda:0``… of the visible cards, or N CPU processes
+with ``--device cpu``); rank 0 prints and writes the logs.
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ import os
 import sys
 import uuid
 
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.launch import (
+    launch,
+    rank_devices,
+    run_on_rank,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.train import rektnet_driver
 from mit_driverless_cv_traininginfra_tpu_torch.utils.logger import Logger, add_bool_arg
 
@@ -83,18 +91,31 @@ def driver_kwargs(argv=None) -> dict:
         device=opt.device)
 
 
-def main(argv=None) -> int:
-    kwargs = driver_kwargs(argv)
+def _logged_main(mesh=None, **kwargs):
+    """``rektnet_driver.main`` with stdout and stderr teed into ``logs/``
+    (by rank 0 alone under a mesh)."""
+    if mesh is not None and not mesh.is_lead:
+        return rektnet_driver.main(**kwargs, mesh=mesh)
     os.makedirs("logs", exist_ok=True)
     out, err = sys.stdout, sys.stderr
     sys.stdout = Logger(os.path.join("logs", kwargs["study_name"] + ".log"))
     sys.stderr = Logger(os.path.join("logs", kwargs["study_name"] + ".error"))
     try:
-        rektnet_driver.main(**kwargs)
+        return rektnet_driver.main(**kwargs, mesh=mesh)
     finally:
         for tee in (sys.stdout, sys.stderr):
             tee.log.close()
         sys.stdout, sys.stderr = out, err
+
+
+def main(argv=None) -> int:
+    kwargs = driver_kwargs(argv)
+    n = kwargs["n_devices"] or 1
+    if n > 1 and not kwargs["vis_upload_data"]:
+        launch(run_on_rank, rank_devices(n, kwargs["device"]),
+               args=(_logged_main, kwargs))
+    else:
+        _logged_main(**kwargs)
     return 0
 
 

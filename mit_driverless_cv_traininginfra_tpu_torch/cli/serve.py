@@ -18,7 +18,9 @@ Sources: a directory of images (JPEG/PNG through the repository's native
 core, else PIL or OpenCV) and/or ``.npy`` frames (always readable), a
 video file (needs OpenCV), or ``synthetic:N`` (N rendered cone scenes at
 the model's input size). Runs on ``--device cuda`` unless ``--device cpu``
-is asked for.
+is asked for. ``--mesh N`` splits each batch over the first N CUDA devices
+(N CPU entries with ``--device cpu``; ``TwoStageServer(mesh=)``), raising
+where fewer exist; the batch size must be a multiple of N.
 """
 
 from __future__ import annotations
@@ -40,11 +42,10 @@ from mit_driverless_cv_traininginfra_tpu_torch.utils.logger import add_bool_arg
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".npy")
 VID_EXTS = (".mp4", ".avi", ".mov", ".mkv")
 
-LEFT_OUT = ("Not carried over from the JAX package's serve CLI: --mesh "
-            "(multi-device serving is not ported), and --crop_kernel and "
-            "--syn_oversize_tail, which drive the TPU crop kernel's DMA "
-            "window and its oversize watch; the CUDA crop samples boxes of "
-            "every size exactly.")
+LEFT_OUT = ("Not carried over from the JAX package's serve CLI: "
+            "--crop_kernel and --syn_oversize_tail, which drive the TPU crop "
+            "kernel's DMA window and its oversize watch; the CUDA crop "
+            "samples boxes of every size exactly.")
 
 
 def _iter_source(source: str):
@@ -175,6 +176,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--syn_repeat", type=int, default=1,
                         help="cycle the synthetic scenes this many times "
                              "(render once, serve N·R frames)")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="shard each batch over the first N devices "
+                             "(0 = one device); the crop compaction stays "
+                             "batch-global")
     add_bool_arg(parser, "latency_mode", False,
                  "serve frame by frame through the MicroBatcher and report "
                  "fenced per-request latency percentiles")
@@ -294,6 +299,7 @@ def main(argv=None) -> int:
     from mit_driverless_cv_traininginfra_tpu_torch.infer.serving import (
         TwoStageServer,
     )
+    from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import make_mesh
     from mit_driverless_cv_traininginfra_tpu_torch.ops.boxes import (
         calculate_padding,
     )
@@ -362,10 +368,14 @@ def main(argv=None) -> int:
         if opt.feed_uint8:
             cal /= 255.0    # calibration always sees [0, 1] f32 frames
     spec, yolo, rekt = _models(opt, spec, dev, cal)
+    mesh = None
+    if opt.mesh:
+        mesh = make_mesh(opt.mesh, devices=None if dev.type == "cuda"
+                         else [dev] * opt.mesh)
     server = TwoStageServer(yolo, rekt, conf_thresh=opt.conf_thres,
                             nms_thresh=opt.nms_thres, max_det=opt.max_det,
                             policy=AdaptiveCapacity(),
-                            observe_every=opt.observe_every)
+                            observe_every=opt.observe_every, mesh=mesh)
     # what crosses host → device per batch: uint8, normalised on the device
     # in the bucket's graph, or frames in the detector's dtype
     wire_dtype = torch.uint8 if opt.feed_uint8 else yolo.frame_dtype

@@ -10,7 +10,10 @@ names, an ``automatic`` output path under ``outputs/``), plus ``--device``
 (``cuda`` unless the CPU is asked for). The ``[net]`` block's
 ``train_uri``/``validate_uri`` name the CSVs (``cli/kmeans_csvs`` writes
 them). While it runs, stdout and stderr are also written to
-``logs/<cfg>.log`` and ``logs/<cfg>.error``.
+``logs/<cfg>.log`` and ``logs/<cfg>.error``. ``--n_devices N`` (N > 1)
+trains on N ranks, one a device (``parallel/launch.py``: ``cuda:0``… of the
+visible cards, or N CPU processes with ``--device cpu``); rank 0 prints and
+writes the logs.
 """
 
 from __future__ import annotations
@@ -19,6 +22,11 @@ import argparse
 import os
 import sys
 
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.launch import (
+    launch,
+    rank_devices,
+    run_on_rank,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.train import yolo_driver
 from mit_driverless_cv_traininginfra_tpu_torch.utils.logger import Logger, add_bool_arg
 
@@ -121,19 +129,32 @@ def driver_kwargs(argv=None) -> dict:
     return kwargs
 
 
-def main(argv=None) -> int:
-    kwargs = driver_kwargs(argv)
+def _logged_main(mesh=None, **kwargs):
+    """``yolo_driver.main`` with stdout and stderr teed into ``logs/`` (by
+    rank 0 alone under a mesh)."""
+    if mesh is not None and not mesh.is_lead:
+        return yolo_driver.main(**kwargs, mesh=mesh)
     os.makedirs("logs", exist_ok=True)
     stem = os.path.basename(kwargs["model_cfg"]).split(".")[0]
     out, err = sys.stdout, sys.stderr
     sys.stdout = Logger(os.path.join("logs", stem + ".log"))
     sys.stderr = Logger(os.path.join("logs", stem + ".error"))
     try:
-        yolo_driver.main(**kwargs)
+        return yolo_driver.main(**kwargs, mesh=mesh)
     finally:
         for tee in (sys.stdout, sys.stderr):
             tee.log.close()
         sys.stdout, sys.stderr = out, err
+
+
+def main(argv=None) -> int:
+    kwargs = driver_kwargs(argv)
+    n = kwargs["n_devices"] or 1
+    if n > 1:
+        launch(run_on_rank, rank_devices(n, kwargs["device"]),
+               args=(_logged_main, kwargs))
+    else:
+        _logged_main(**kwargs)
     return 0
 
 

@@ -7,6 +7,12 @@ a step is an index draw. The pool freezes one materialisation of each
 sample (its patch choice and host affine warp are drawn once); pair it
 with ``device_aug`` so the step's jitter, flips and noise stay fresh.
 
+Under a process mesh (``parallel/mesh.py``) each rank holds the whole
+pool on its device (replicated, as the JAX pool is over its mesh) and
+draws the same indices; a batch's images are gathered for this rank's
+rows only, its labels stay the global batch's (the driver counts targets
+on them, then cuts them to the rank's rows).
+
 The images cost ``N·H·W·C·itemsize`` bytes of device memory, and
 ``budget_bytes`` refuses a pool above it. A bf16 pool halves that (a bf16
 step casts its images to bf16 anyway); it is filled item by item straight
@@ -33,8 +39,9 @@ class DevicePool:
     targets on the host without a sync)."""
 
     def __init__(self, images: torch.Tensor, labels: np.ndarray,
-                 uris: Optional[Sequence[str]] = None):
+                 uris: Optional[Sequence[str]] = None, mesh=None):
         self.images = images
+        self.mesh = mesh
         self.labels = np.asarray(labels, np.float32)
         self.uris = list(uris) if uris is not None else [""] * len(labels)
 
@@ -49,11 +56,12 @@ class DevicePool:
     def from_dataset(cls, dataset, num: Optional[int] = None, device="cuda",
                      budget_bytes: float = 6e9,
                      dtype: torch.dtype = torch.float32,
-                     num_workers: int = 1) -> "DevicePool":
+                     num_workers: int = 1, mesh=None) -> "DevicePool":
         """Read ``dataset[i]`` once per sample, on ``num_workers`` threads
         (the items come in index order), and keep the images on ``device``
         in ``dtype``. ``num`` caps the pool's size; ``budget_bytes`` is the
-        device-memory guard."""
+        device-memory guard. ``mesh``: a process mesh whose ranks each hold
+        this pool (``device`` is the rank's)."""
         dev = resolve_device(device)
         n = len(dataset) if num is None else min(num, len(dataset))
         if n == 0:
@@ -84,13 +92,14 @@ class DevicePool:
                 chunk = range(c0, min(c0 + 2 * w, n))
                 for i, f in zip(chunk, [ex.submit(dataset.__getitem__, i) for i in chunk]):
                     put(i, f.result())
-        return cls(images, labels, uris)
+        return cls(images, labels, uris, mesh=mesh)
 
     def sample(self, idx):
         """Device gather of a batch: ``(images on the device, labels host
-        numpy)``."""
+        numpy)``; under a mesh the images of this rank's rows of ``idx``."""
         idx = np.asarray(idx, np.int64)
-        return (self.images[torch.from_numpy(idx).to(self.images.device)],
+        mine = idx if self.mesh is None else idx[self.mesh.rows(len(idx))]
+        return (self.images[torch.from_numpy(mine).to(self.images.device)],
                 self.labels[idx])
 
     def loader(self, batch_size: int, shuffle: bool = True, seed: int = 17,

@@ -9,7 +9,10 @@ array in pinned host memory and copies it with ``non_blocking`` on a side
 stream; the consumer's stream waits on the copy's event, and each tensor
 is marked used on that stream (``record_stream``), so the allocator does
 not hand its memory to the side stream's next copy before the consumer's
-work on it is done.
+work on it is done. Under a process mesh (``parallel/mesh.py``) every rank
+iterates the same loader (same seed, same order) and copies only its rows
+of each global batch, so step t's global batch is the one-device run's
+batch t.
 """
 
 from __future__ import annotations
@@ -88,14 +91,23 @@ class DataLoader:
                 yield self.collate([f.result() for f in futures])
 
 
-def prefetch_to_device(iterator, device="cuda", depth: int = 2):
+def prefetch_to_device(iterator, device="cuda", depth: int = 2, mesh=None):
     """Wrap a batch iterator: each batch (a tuple) comes back with its
     numpy arrays (ndim > 0) as tensors on ``device``, ``depth`` batches
     copied ahead on a background thread; other fields pass through. On the
     CPU the arrays are wrapped in place. A producer's exception is raised
     in the consumer: a failing dataset ends the epoch with that error, not
-    early and quietly. Leaving the loop early stops the producer."""
+    early and quietly. Leaving the loop early stops the producer.
+
+    With a process ``mesh`` each numpy array is cut to this rank's rows
+    (its leading axis is the global batch, which must divide) before the
+    copy; tensors pass through as they are, being this rank's already (a
+    mesh pool's images)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        iterator = (tuple(x[mesh.rows(x.shape[0])]
+                          if isinstance(x, np.ndarray) and x.ndim > 0 else x
+                          for x in batch) for batch in iterator)
     if dev.type != "cuda":
         for batch in iterator:
             yield tuple(torch.from_numpy(x) if isinstance(x, np.ndarray) and x.ndim > 0

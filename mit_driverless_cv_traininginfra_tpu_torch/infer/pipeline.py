@@ -50,6 +50,25 @@ def _postprocess(dets, conf_thresh: float, nms_thresh: float, max_det: int):
                     overlap=nms_thresh)
 
 
+def top_crop_slots(mask, scores, capacity: int):
+    """The ``capacity`` flat (B·K) slots the compacted crop path keeps:
+    valid first, score descending, ties to the lower slot (``lax.top_k``
+    order), across the whole batch."""
+    n = mask.numel()
+    key = torch.where(mask.reshape(-1), -scores.reshape(-1).float(),
+                      torch.full((n,), torch.inf, device=mask.device))
+    return _topk_stable(-key, capacity)[1]
+
+
+def kept_slots(sel, mask):
+    """(B, K) bool: the valid slots among the flat indices ``sel``."""
+    # index_fill_ takes the value as a kernel argument; kept[sel] = True
+    # would copy a host scalar to the device and wait for it
+    kept = torch.zeros((mask.numel(),), dtype=torch.bool, device=mask.device)
+    kept.index_fill_(0, sel, True)
+    return kept.reshape(mask.shape) & mask
+
+
 def _crops_and_keypoints(kpt_apply, frames, boxes, scores, mask,
                          crop_size: int, crop_capacity):
     """ROI crop + keypoint net, optionally compacted to the valid slots.
@@ -67,20 +86,13 @@ def _crops_and_keypoints(kpt_apply, frames, boxes, scores, mask,
         fidx = torch.arange(B, device=frames.device).repeat_interleave(K)
         crops = roi_crop(frames, flat_boxes, fidx, crop_size, crop_size)
         return kpt_apply(crops).reshape(B, K, 7, 2), mask
-    key = torch.where(mask.reshape(-1), -scores.reshape(-1).float(),
-                      torch.full((B * K,), torch.inf, device=mask.device))
-    sel = _topk_stable(-key, crop_capacity)[1]
+    sel = top_crop_slots(mask, scores, crop_capacity)
     crops_c = roi_crop(frames, flat_boxes[sel], sel // K, crop_size,
                        crop_size)
     pts_c = kpt_apply(crops_c)  # (C, 7, 2)
     pts = torch.zeros((B * K, 7, 2), dtype=pts_c.dtype, device=pts_c.device)
     pts[sel] = pts_c
-    # index_fill_ takes the value as a kernel argument; kept[sel] = True
-    # would copy a host scalar to the device and wait for it
-    kept = torch.zeros((B * K,), dtype=torch.bool, device=mask.device)
-    kept.index_fill_(0, sel, True)
-    kept &= mask.reshape(-1)
-    return pts.reshape(B, K, 7, 2), kept.reshape(B, K)
+    return pts.reshape(B, K, 7, 2), kept_slots(sel, mask)
 
 
 def normalize_u8(frames):

@@ -48,11 +48,25 @@ launches its kernel. A replay calls no wrapper and moves no count: the
 kernels a replay ran are counted by name from a profiler's record of the
 device (``chip_smoke.py``: ``profiled_launches``).
 
+Several devices (``mesh=``, a device mesh of ``parallel/mesh.py``): one
+process drives every device of the mesh, as the JAX server is one
+controller. A batch is padded to a run batch size that is a multiple of
+the mesh size (with no usable one, to the next multiple of the mesh size)
+and split into contiguous equal shards; each device runs detection, NMS
+and the compacted crop path on its shard, from a copy of the models on it
+(its own CUDA graph a bucket on the card). The crop compaction stays
+batch-global: a shard's own top-C holds every slot of the global top-C
+that lies in it, so the shards' keypoints are gathered to the lead device
+(the mesh's first) with the (B, K) masks and scores, the global top-C is
+taken there, and keypoints outside it are zeroed. Masks and boxes equal
+the server's without a mesh, also when the valid detections exceed the
+capacity; outputs come back on the lead device. A batch that does not
+divide raises, as the JAX server does.
+
 The int8 configuration comes as models, not as the JAX server's quantized
 bundles, so there is no ``from_params``. Not ported: the int8 packed stem
 (``stem_q``, ``packed_stem``: TPU layout fixes, to be measured on the card
-first), the device mesh (multi-device serving comes with the rest of the
-multi-device work), and the windowed-crop oversize watch with its
+first), and the windowed-crop oversize watch with its
 auto-degrade and its ``oversize_*`` / ``crop_kernel_*`` counters: they
 guard the TPU crop kernel's window, and the CUDA crop (K1) samples every
 box exactly, whatever its size.
@@ -68,6 +82,7 @@ Usage::
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from typing import Iterable, NamedTuple, Optional, Sequence
@@ -80,9 +95,15 @@ from mit_driverless_cv_traininginfra_tpu_torch.infer.capacity import (
 )
 from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
     PipelineOut,
+    kept_slots,
+    top_crop_slots,
     two_stage_pipeline,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import YoloHeads
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    replicate,
+)
 
 
 class _Observation(NamedTuple):
@@ -141,10 +162,18 @@ class TwoStageServer:
                  observe_every: int = 8, grow_past_warmed: bool = False,
                  pad_to_batch: bool = True, pad_max_factor: int = 4,
                  latency_window: int = 256, defer_observation: bool = True,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, mesh=None):
         self.yolo, self.rekt = yolo, rekt
         self.spec = yolo.spec
-        self.device = yolo.device
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.group is not None:
+                raise ValueError("TwoStageServer takes a device mesh (make_mesh), "
+                                 "not a process mesh")
+            # (device, detector, keypoint net) a shard
+            self._shards = list(zip(mesh.devices, replicate(mesh, yolo),
+                                    replicate(mesh, rekt)))
+        self.device = yolo.device if mesh is None else mesh.devices[0]
         self.frame_dtype = yolo.frame_dtype
         self.conf_thresh = conf_thresh
         self.nms_thresh = nms_thresh
@@ -166,11 +195,12 @@ class TwoStageServer:
         self.batch_pads = 0       # short batches padded up to a run B
         self.pad_spurious = 0     # detections fired by zero pad frames
         self.warmup_seconds = 0.0
-        # CUDA graphs: the graph of each (batch, capacity, frame shape,
-        # dtype), their pool and their capture stream
+        # CUDA graphs: the graph of each (shard, batch, capacity, frame
+        # shape, dtype) (shard None without a mesh), and a pool and capture
+        # stream a device
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         self._graphs: dict[tuple, _BucketGraph] = {}
-        self._pool = self._stream = None
+        self._capture: dict[torch.device, tuple] = {}
         self.replays = 0
         # fenced samples (defer_observation=False, the bootstrap,
         # measure_latency): dispatch → mask on the host, a true batch
@@ -219,11 +249,12 @@ class TwoStageServer:
             for cap in caps:
                 cap = int(min(cap, B * self.max_det))
                 if self.cuda_graphs:
-                    self._graph((B, cap, shape, dtype))
+                    for key in self._keys(B, cap, shape, dtype):
+                        self._graph(key)
                 else:
                     frames = torch.zeros((B, *shape), dtype=dtype,
                                          device=self.device)
-                    self._run(frames, cap).scores.cpu()
+                    self._dispatch(frames, B, cap).scores.cpu()
                 self.warmed.add((B, cap))
                 self.seen.add((B, cap))
         for ps in pad_sizes or ():
@@ -239,14 +270,27 @@ class TwoStageServer:
         return self.warmup_seconds
 
     def _graph(self, key: tuple) -> None:
-        """Capture the CUDA graph of ``key``, (batch, capacity, frame shape,
-        dtype), unless it exists."""
+        """Capture the CUDA graph of ``key``, (shard, batch, capacity, frame
+        shape, dtype), unless it exists."""
         if key not in self._graphs:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-                self._stream = torch.cuda.Stream(self.device)
-            self._graphs[key] = _BucketGraph(self._run, *key, self.device,
-                                             self._pool, self._stream)
+            shard, *bucket = key
+            dev = self.device if shard is None else self._shards[shard][0]
+            run = self._run if shard is None else functools.partial(self._run,
+                                                                    shard=shard)
+            with torch.cuda.device(dev):
+                if dev not in self._capture:
+                    self._capture[dev] = (torch.cuda.graph_pool_handle(),
+                                          torch.cuda.Stream(dev))
+                self._graphs[key] = _BucketGraph(run, *bucket, dev,
+                                                 *self._capture[dev])
+
+    def _keys(self, B: int, cap: int, shape, dtype) -> list:
+        """The graph keys a (B, cap) request of frames ``shape``/``dtype``
+        runs: one, or one a shard of the mesh."""
+        if self.mesh is None:
+            return [(None, B, cap, tuple(shape), dtype)]
+        return [(s, rows.stop - rows.start, cap, tuple(shape), dtype)
+                for s, (_, rows) in enumerate(batch_sharding(self.mesh, B))]
 
     def _pick_bucket(self, B: int, want: int) -> int:
         """Map the policy's want onto a bucket already run for this batch
@@ -273,15 +317,17 @@ class TwoStageServer:
     def _pad_target(self, B0: int) -> int:
         """The batch size a batch of ``B0`` runs at: with ``pad_to_batch``,
         the smallest run batch size in [B0, ``pad_max_factor``·B0]
-        (``batch_pads`` counts a pad), else B0. Zero frames may fire
-        detections with untrained weights; those are counted in
-        ``pad_spurious``. A batch with no such size runs unpadded, a new
-        bucket."""
+        that is a multiple of the mesh size (``batch_pads`` counts a pad),
+        else B0. Zero frames may fire detections with untrained weights;
+        those are counted in ``pad_spurious``. A batch with no such size
+        runs unpadded, a new bucket; under a mesh it is padded to the next
+        multiple of the mesh size."""
         if not self.pad_to_batch:
             return B0
-        run = sorted({b for (b, _) in (self.warmed | self.seen)})
+        n = 1 if self.mesh is None else self.mesh.size
+        run = sorted({b for (b, _) in (self.warmed | self.seen) if b % n == 0})
         target = next((b for b in run
-                       if B0 <= b <= self.pad_max_factor * B0), B0)
+                       if B0 <= b <= self.pad_max_factor * B0), -(-B0 // n) * n)
         if target != B0:
             self.batch_pads += 1
         return target
@@ -291,30 +337,56 @@ class TwoStageServer:
         detector's ``frame_dtype``, to which other float frames are cast."""
         return torch.uint8 if dtype == torch.uint8 else self.frame_dtype
 
-    def _run(self, frames, cap: int) -> PipelineOut:
+    def _run(self, frames, cap: int, shard=None) -> PipelineOut:
+        yolo, rekt = ((self.yolo, self.rekt) if shard is None
+                      else self._shards[shard][1:])
         return two_stage_pipeline(
-            self.yolo, self.rekt, frames, conf_thresh=self.conf_thresh,
+            yolo, rekt, frames, conf_thresh=self.conf_thresh,
             nms_thresh=self.nms_thresh, max_det=self.max_det,
             crop_size=self.crop_size, crop_capacity=cap)
 
     def _dispatch(self, frames, B: int, cap: int) -> PipelineOut:
         """Run ``frames`` (B0 ≤ B of them, any device) as bucket (B, cap),
         padded with zero frames to B: by graph replay where this bucket,
-        frame shape and dtype were captured, else eagerly."""
-        graph = self._graphs.get(self._key(frames, B, cap))
+        frame shape and dtype were captured, else eagerly; under a mesh,
+        shard by shard, then merged (:meth:`_merge`)."""
+        keys = self._keys(B, cap, frames.shape[1:], frames.dtype)
+        if self.mesh is None:
+            return self._dispatch_shard(keys[0], frames)
+        if frames.shape[0] < B:
+            pad = frames.new_zeros((B - frames.shape[0], *frames.shape[1:]))
+            frames = torch.cat([frames, pad])
+        return self._merge([self._dispatch_shard(key, frames[rows]) for key, (_, rows)
+                            in zip(keys, batch_sharding(self.mesh, B))], cap)
+
+    def _dispatch_shard(self, key: tuple, frames) -> PipelineOut:
+        graph = self._graphs.get(key)
         if graph is not None:
             out = graph(frames)
             self.replays += 1
             return out
-        frames = frames.to(self.device, non_blocking=True)
+        shard, B = key[0], key[1]
+        dev = self.device if shard is None else self._shards[shard][0]
+        frames = frames.to(dev, non_blocking=True)
         if frames.shape[0] < B:
             pad = frames.new_zeros((B - frames.shape[0], *frames.shape[1:]))
             frames = torch.cat([frames, pad])
-        return self._run(frames, cap)
+        return self._run(frames, key[2], shard=shard)
 
-    @staticmethod
-    def _key(frames, B: int, cap: int) -> tuple:
-        return (B, cap, tuple(frames.shape[1:]), frames.dtype)
+    def _merge(self, outs, cap: int) -> PipelineOut:
+        """The shards' outputs on the lead device, with the batch-global
+        crop compaction: each shard kept its own top ``cap`` slots, a
+        superset of the global top ``cap`` within it (the order is the
+        same, restricted to the shard), so keypoints outside the global
+        top ``cap`` are zeroed."""
+        boxes, scores, mask, kpts = (
+            torch.cat([o[i].to(self.device, non_blocking=True) for o in outs])
+            for i in range(4))
+        if cap < mask.numel():
+            kept = kept_slots(top_crop_slots(mask, scores, cap), mask)
+            kpts = torch.where(kept[..., None, None], kpts,
+                               torch.zeros((), device=kpts.device))
+        return PipelineOut(boxes, scores, mask, kpts)
 
     def _as_frames(self, frames):
         frames = torch.as_tensor(frames)
@@ -328,10 +400,10 @@ class TwoStageServer:
         if self.warmed:
             cap = self._pick_bucket(B, cap)
         fresh = (B, cap) not in self.seen
-        key = self._key(frames, B, cap)
-        if self.cuda_graphs and key not in self._graphs:
-            self._graph(key)      # a capture while serving is a compile
-            fresh = True
+        for key in self._keys(B, cap, frames.shape[1:], frames.dtype):
+            if self.cuda_graphs and key not in self._graphs:
+                self._graph(key)  # a capture while serving is a compile
+                fresh = True
         self.seen.add((B, cap))
         self.compiles += fresh
         self.current_capacity = cap

@@ -369,13 +369,14 @@ class _TrainConv(nn.Module):
         else:
             self.bias = nn.Parameter(p["b"].detach().clone().float())
 
-    def forward(self, x, dtype, train: bool):
+    def forward(self, x, dtype, train: bool, mesh=None):
         """NCHW ``x`` → the conv (parameters cast to ``dtype``), then the
-        batch norm (batch statistics and a running-stat update in training)
-        or ``+ b``, each rounded to ``dtype`` as the JAX package rounds."""
+        batch norm (batch statistics, the global batch's under a process
+        ``mesh``, and a running-stat update in training) or ``+ b``, each
+        rounded to ``dtype`` as the JAX package rounds."""
         y = F.conv2d(x, self.weight.to(dtype), None, self.stride, self.padding)
         if hasattr(self, "bn"):
-            return self.bn(y, dtype, train)
+            return self.bn(y, dtype, train, mesh)
         return y + self.bias.to(dtype)[None, :, None, None]
 
 
@@ -402,14 +403,17 @@ class TrainDarknet(YoloHeads):
                                (b.size - 1) // 2)
             for i, b in enumerate(spec.blocks) if isinstance(b, ConvBlock)})
 
-    def _conv(self, i: int, x, train: bool = False, dtype=torch.float32):
-        y = self.convs[str(i)](x.permute(0, 3, 1, 2), dtype, train)
+    def _conv(self, i: int, x, train: bool = False, dtype=torch.float32,
+              mesh=None):
+        y = self.convs[str(i)](x.permute(0, 3, 1, 2), dtype, train, mesh)
         return y.permute(0, 2, 3, 1)
 
-    def forward_features(self, x, train: bool = False, dtype=torch.float32):
+    def forward_features(self, x, train: bool = False, dtype=torch.float32,
+                         mesh=None):
         """x (B, H, W, C) → the raw pre-yolo maps in ``dtype``, one per
-        yolo head, each NHWC (B, h, w, A·(5+C))."""
-        conv = functools.partial(self._conv, train=train, dtype=dtype)
+        yolo head, each NHWC (B, h, w, A·(5+C)). Under a process ``mesh``
+        the training batch norms take the global batch's statistics."""
+        conv = functools.partial(self._conv, train=train, dtype=dtype, mesh=mesh)
         return self._walk(x.to(dtype), len(self.spec.blocks), conv)[1]
 
     def trees(self):

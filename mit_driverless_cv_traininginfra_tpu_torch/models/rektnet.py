@@ -23,6 +23,7 @@ from torch import nn
 from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
     fused_softargmax,
 )
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import batch_mean_var
 
 BN_EPS = 1e-5       # torch BatchNorm2d default, as in the JAX package
 BN_MOMENTUM = 0.1   # running = (1 − m)·running + m·batch
@@ -168,7 +169,7 @@ def init(gen: torch.Generator, num_kpt: int = 7, in_channels: int = 3,
     return params, state
 
 
-def batch_norm(x, bn: Dict[str, torch.Tensor], train: bool = False):
+def batch_norm(x, bn: Dict[str, torch.Tensor], train: bool = False, mesh=None):
     """Batch norm over NCHW ``x`` with torch semantics, written as the JAX
     package writes it. Returns ``(y, batch_stats)``: in training the
     statistics are taken in f32 over (N, H, W), ``y`` is normalised with
@@ -176,13 +177,22 @@ def batch_norm(x, bn: Dict[str, torch.Tensor], train: bool = False):
     :func:`update_running`; in eval ``bn["mean"]``, ``bn["var"]`` are used
     and ``batch_stats`` is None. ``scale = rsqrt(var + eps)·γ`` in f32,
     then cast to ``x.dtype`` like β and the mean. (f64 ``x``, a reference
-    evaluation, keeps f64 throughout.)"""
+    evaluation, keeps f64 throughout.)
+
+    Under a process ``mesh`` (``parallel.mesh``) the statistics are the
+    global batch's, as the JAX step takes them over its sharded batch: the
+    same two passes over every rank's rows (``batch_mean_var``), the
+    unbiased ``n`` the global count; the backward sums over the ranks, and
+    every rank's running stats see the same values."""
     sdt = torch.promote_types(x.dtype, torch.float32)
     if train:
         xf = x.to(sdt)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf - mean[None, :, None, None]) ** 2).mean(dim=(0, 2, 3))
-        n = x.shape[0] * x.shape[2] * x.shape[3]
+        if mesh is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf - mean[None, :, None, None]) ** 2).mean(dim=(0, 2, 3))
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+        else:
+            mean, var, n = batch_mean_var(xf, (0, 2, 3), mesh)
         stats = (mean, var * n / max(n - 1, 1))
     else:
         mean, var = bn["mean"], bn["var"]
@@ -235,10 +245,10 @@ class _BN(nn.Module):
         self.register_buffer("running_var", s["var"].detach().clone().float())
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.int64))
 
-    def forward(self, x, dtype, train: bool):
+    def forward(self, x, dtype, train: bool, mesh=None):
         bn = {"scale": self.weight.to(dtype), "bias": self.bias.to(dtype),
               "mean": self.running_mean, "var": self.running_var}
-        y, stats = batch_norm(x, bn, train)
+        y, stats = batch_norm(x, bn, train, mesh)
         if train:
             update_running({"mean": self.running_mean, "var": self.running_var},
                            stats)
@@ -255,12 +265,13 @@ class _TrainResBlock(nn.Module):
         self.shortcut_conv = _Conv(p["shortcut_conv"])
         self.shortcut_bn = _BN(p["shortcut_bn"], s["shortcut_bn"])
 
-    def forward(self, x, dtype, train: bool):
+    def forward(self, x, dtype, train: bool, mesh=None):
         """The JAX package's ``_res_block``: dilation-2 3×3 → BN → ReLU →
         3×3 → BN, plus a 1×1-conv/BN shortcut, ReLU on the sum."""
-        a1 = F.relu(self.bn1(self.conv1(x, dtype, padding=2, dilation=2), dtype, train))
-        b2 = self.bn2(self.conv2(a1, dtype, padding=1), dtype, train)
-        sc = self.shortcut_bn(self.shortcut_conv(x, dtype), dtype, train)
+        a1 = F.relu(self.bn1(self.conv1(x, dtype, padding=2, dilation=2), dtype,
+                             train, mesh))
+        b2 = self.bn2(self.conv2(a1, dtype, padding=1), dtype, train, mesh)
+        sc = self.shortcut_bn(self.shortcut_conv(x, dtype), dtype, train, mesh)
         return F.relu(sc + b2)
 
 
@@ -280,24 +291,24 @@ class KeypointNet(nn.Module):
             _TrainResBlock(params[f"res{i}"], state[f"res{i}"]) for i in range(1, 5))
         self.out = _Conv(params["out"])
 
-    def logits(self, x, train: bool = False, dtype=torch.float32):
+    def logits(self, x, train: bool = False, dtype=torch.float32, mesh=None):
         """x (B, H, W, C) NHWC crops in [0, 1] → the raw heatmap logits (B,
         K, H, W) in ``dtype`` (the exported ``onnx_mode`` graph's output).
         The parameters are cast to ``dtype`` for the compute (f32 masters);
-        ``train`` normalises with batch statistics and updates the running
-        stats in place."""
+        ``train`` normalises with batch statistics (the global batch's
+        under a process ``mesh``) and updates the running stats in place."""
         h = x.to(dtype).permute(0, 3, 1, 2)
-        h = F.relu(self.bn(self.conv(h, dtype, padding=3), dtype, train))
+        h = F.relu(self.bn(self.conv(h, dtype, padding=3), dtype, train, mesh))
         for blk in (self.res1, self.res2, self.res3, self.res4):
-            h = blk(h, dtype, train)
+            h = blk(h, dtype, train, mesh)
         return self.out(h, dtype)
 
     def forward(self, x, train: bool = False, dtype=torch.float32,
-                points_dtype=None):
+                points_dtype=None, mesh=None):
         """:meth:`logits`, then the flat softmax and soft-argmax: (heatmap
         probs (B, K, H, W) in ``dtype``, points (B, K, 2) in
         ``points_dtype``, by default ``dtype``)."""
-        points, probs = soft_argmax_2d(self.logits(x, train, dtype), points_dtype)
+        points, probs = soft_argmax_2d(self.logits(x, train, dtype, mesh), points_dtype)
         return probs, points
 
     def trees(self):

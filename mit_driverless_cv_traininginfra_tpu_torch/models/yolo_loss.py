@@ -14,6 +14,13 @@ Reference quirks kept, as the JAX package keeps them:
 - ``gi``/``gj`` truncate the box centre and clip it into the grid;
 - anchors are read as (w, h).
 
+Several devices. Under a process mesh (``parallel/mesh.py``) each rank
+holds its rows of the global batch and its loss is its share of the
+global loss: the ignore cells are the max over the ranks' (an ignore
+cell of any image drops the cell everywhere), each masked mean is the
+rank's masked sum over the all-summed count, and the ranks' losses and
+components add up to the single-device ones on the whole batch.
+
 Duplicate writes. Two rows that land in one (b, anchor, j, i) cell write
 one target slot; XLA:CPU applies scatter updates in order, so the highest
 row wins. ``index_put_`` leaves duplicates unspecified (on CUDA the result
@@ -37,6 +44,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
 from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import (
     head_predictions,
 )
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import all_max_, all_sum_
 
 
 class YoloTargets(NamedTuple):
@@ -105,12 +113,13 @@ def log_f32(x):
 
 
 def build_targets(target, anchors, num_classes: int, grid_h: int,
-                  grid_w: int, ignore_thresh: float) -> YoloTargets:
+                  grid_w: int, ignore_thresh: float, mesh=None) -> YoloTargets:
     """GT → (anchor, cell) assignment of one head.
 
     ``target``: (B, T, 5) ``[class, cx, cy, w, h]`` normalised to [0, 1],
     all-zero rows are padding. ``anchors``: (A, 2) ``(w, h)`` in grid
-    units, an f32 tensor on ``target``'s device."""
+    units, an f32 tensor on ``target``'s device. Under a process ``mesh``
+    the batch-global ignore cells are taken over every rank's rows."""
     target = target.float()
     dev = target.device
     B, T, _ = target.shape
@@ -141,6 +150,8 @@ def build_targets(target, anchors, num_classes: int, grid_h: int,
     hw_ignore = torch.zeros(grid_h * grid_w, dtype=torch.int32, device=dev)
     hw_ignore = hw_ignore.scatter_reduce(0, (gj * grid_w + gi).reshape(-1),
                                          any_ignore.reshape(-1).int(), "amax")
+    if mesh is not None:
+        all_max_(hw_ignore, mesh)
     conf_mask = (hw_ignore == 0).reshape(1, 1, grid_h, grid_w).expand(
         B, A, grid_h, grid_w)
 
@@ -177,8 +188,9 @@ def build_targets(target, anchors, num_classes: int, grid_h: int,
     return YoloTargets(mask, conf_mask, tx, ty, tw, th, tconf, tcls)
 
 
-def _masked_mean(x, m):
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+def _masked_mean(x, m, count):
+    """Σ x·m over ``count`` (Σ m, all-summed under a mesh), at least 1."""
+    return (x * m).sum() / count
 
 
 class _Softplus(torch.autograd.Function):
@@ -220,39 +232,47 @@ def scaled_anchors(anchors: Tuple[Tuple[float, float], ...], stride: float,
 def yolo_head_loss(head_out, target, anchors: Sequence[Tuple[float, float]],
                    img_height: int, num_classes: int, ignore_thresh: float,
                    xy_loss: float, wh_loss: float, object_loss: float,
-                   no_object_loss: float):
+                   no_object_loss: float, mesh=None):
     """One head's loss: masked MSE on x, y, w, h, masked BCE on the
     object and no-object cells, no class loss (single-class detection).
     Returns ``(loss, components)``, components ``(x, y, w, h, obj,
-    noobj)`` as a (6,) tensor."""
+    noobj)`` as a (6,) tensor: this rank's share under a process
+    ``mesh``."""
     _, gh, gw, _ = head_out.shape
     stride = img_height / gh  # the height's stride on both axes (reference)
     pred = head_predictions(head_out, len(anchors), num_classes)
     t = build_targets(target, scaled_anchors(tuple(map(tuple, anchors)), stride,
                                              head_out.device),
-                      num_classes, gh, gw, ignore_thresh)
+                      num_classes, gh, gw, ignore_thresh, mesh)
     m = t.mask.float()
     noobj = (t.conf_mask & ~t.mask).float()
-    loss_x = xy_loss * _masked_mean((pred["x"] - t.tx) ** 2, m)
-    loss_y = xy_loss * _masked_mean((pred["y"] - t.ty) ** 2, m)
-    loss_w = wh_loss * _masked_mean((pred["w"] - t.tw) ** 2, m)
-    loss_h = wh_loss * _masked_mean((pred["h"] - t.th) ** 2, m)
+    counts = torch.stack([m.sum(), noobj.sum()])
+    if mesh is not None:
+        all_sum_(counts, mesh)
+    n_obj, n_noobj = counts.clamp(min=1.0).unbind()
+    loss_x = xy_loss * _masked_mean((pred["x"] - t.tx) ** 2, m, n_obj)
+    loss_y = xy_loss * _masked_mean((pred["y"] - t.ty) ** 2, m, n_obj)
+    loss_w = wh_loss * _masked_mean((pred["w"] - t.tw) ** 2, m, n_obj)
+    loss_h = wh_loss * _masked_mean((pred["h"] - t.th) ** 2, m, n_obj)
     bce = _bce_logits(pred["conf_logit"], t.tconf)
-    loss_noobj = no_object_loss * _masked_mean(bce, noobj)
-    loss_obj = object_loss * _masked_mean(bce, m)
+    loss_noobj = no_object_loss * _masked_mean(bce, noobj, n_noobj)
+    loss_obj = object_loss * _masked_mean(bce, m, n_obj)
     loss = loss_x + loss_y + loss_w + loss_h + loss_noobj + loss_obj
     return loss, torch.stack([loss_x, loss_y, loss_w, loss_h, loss_obj, loss_noobj])
 
 
 def yolo_loss(spec: NetworkSpec, head_outputs, target, xy_loss: float,
-              wh_loss: float, object_loss: float, no_object_loss: float):
-    """The sum of the heads' losses: ``(total, components (6,))``."""
+              wh_loss: float, object_loss: float, no_object_loss: float,
+              mesh=None):
+    """The sum of the heads' losses: ``(total, components (6,))``, this
+    rank's shares under a process ``mesh`` (their sum over the ranks is the
+    global loss)."""
     yolo_blocks = [b for b in spec.blocks if isinstance(b, YoloBlock)]
     total, comps = 0.0, 0.0
     for head_out, blk in zip(head_outputs, yolo_blocks):
         loss, c = yolo_head_loss(
             head_out, target, blk.anchors, spec.net.height,
             spec.net.num_classes, spec.net.build_targets_ignore_thresh,
-            xy_loss, wh_loss, object_loss, no_object_loss)
+            xy_loss, wh_loss, object_loss, no_object_loss, mesh)
         total, comps = total + loss, comps + c
     return total, comps

@@ -24,6 +24,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import all_sum_grads_
+
 
 def make_optimizer(params, kind: str = "Adam", lr: float = 1e-3,
                    momentum: float = 0.9, weight_decay: float = 0.0,
@@ -71,9 +73,15 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> None:
     torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, max_norm)))
 
 
-def optimizer_step(opt: torch.optim.Optimizer) -> None:
-    """Clip the gradients' global norm to ``opt.grad_clip`` (when set;
-    :func:`clip_by_global_norm`), then take the optimizer's step."""
+def optimizer_step(opt: torch.optim.Optimizer, mesh=None) -> None:
+    """Under a process ``mesh``, sum the gradients over the ranks first
+    (each rank's loss is its share of the global loss, so the sum is the
+    whole batch's gradient, equal on every rank); clip their global norm
+    to ``opt.grad_clip`` (when set; :func:`clip_by_global_norm`); then take
+    the optimizer's step, which keeps the parameters and the optimizer
+    state equal on every rank."""
+    if mesh is not None:
+        all_sum_grads_([p for g in opt.param_groups for p in g["params"]], mesh)
     if getattr(opt, "grad_clip", 0.0):
         clip_by_global_norm([p.grad for g in opt.param_groups for p in g["params"]
                              if p.grad is not None], opt.grad_clip)

@@ -13,8 +13,15 @@ from the label CSV and the crops on disk (``data/rektnet_data.py``), as
 the JAX package's ``main`` does, on the card unless the caller asks for
 the CPU. On each new best validation loss (with ``save_checkpoints``)
 the loop writes the model as ``<output_path>/best_keypoints_<H><W>.onnx``
-(``export/pt_to_onnx.py``). Not ported: several devices (ROADMAP Queue 1
-item 8).
+(``export/pt_to_onnx.py``).
+
+Several devices (``main(n_devices=N)``, N > 1): N ranks through
+``parallel/launch.py``, each running the loop on a process mesh. Every
+rank reads the same batches, pads a partial one to a multiple of N by
+repeating samples and steps on its rows (the JAX driver's pad and shard);
+validation runs on every rank on the whole batch, unsharded, as the JAX
+driver's does. Only rank 0 writes checkpoints, ONNX files and the
+keypoint report, and only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -41,6 +48,15 @@ from mit_driverless_cv_traininginfra_tpu_torch.ops.heatmap import (
     keypoint_distance_summary,
     keypoint_l2_distances,
 )
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.launch import (
+    launch,
+    rank_devices,
+    run_on_rank,
+)
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import (
+    pad_batch_to_devices,
+    replicate,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import (
     load_rektnet_pt,
     save_rektnet_pt,
@@ -58,9 +74,18 @@ from mit_driverless_cv_traininginfra_tpu_torch.train.steps import (
 MAX_TOLERANCE = 8  # train_eval.py
 
 
-def _on(device, imgs, hms, pts):
-    return tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
-                 for a in (imgs, hms, pts))
+def _on(device, imgs, hms, pts, mesh=None):
+    """The batch as f32 tensors on ``device``; under a process ``mesh``
+    padded to a multiple of the mesh by repeating samples, and this rank's
+    rows of it."""
+    out = []
+    for a in (imgs, hms, pts):
+        a = np.asarray(a, np.float32)
+        if mesh is not None:
+            a, _ = pad_batch_to_devices(a, mesh.size)
+            a = a[mesh.rows(a.shape[0])]
+        out.append(torch.as_tensor(a, device=device))
+    return tuple(out)
 
 
 def eval_model(model, loader: Iterable, loss_kw, device):
@@ -125,7 +150,7 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
                   checkpoint_interval: int = 4, save_checkpoints: bool = True,
                   input_size=(80, 80), study_name: str = "rektnet",
                   kpt_keys: Sequence[str] = KPT_NAMES, start_epoch: int = 0,
-                  log_dir: str = "logs"):
+                  log_dir: str = "logs", mesh=None):
     """The reference's epoch loop on ``model`` (a ``KeypointNet`` on
     ``device``, the card unless the caller asks for the CPU; a missing card
     raises) and ``opt``. ``mixed_precision`` trains in bf16 compute;
@@ -133,8 +158,11 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
     Writes ``<output_path>/<epoch>_loss_<val>.pt`` (the model, its Adam
     state and the epoch) every ``checkpoint_interval`` epochs, and
     ``best_keypoints_<H><W>.onnx`` at each new best validation loss.
-    Returns ``(best validation loss, best epoch, last epoch run)``."""
+    ``mesh``: this rank's process mesh (each rank steps on its rows of
+    each batch; rank 0 alone writes files). Returns ``(best validation
+    loss, best epoch, last epoch run)``."""
     device = resolve_device(device)
+    lead = mesh is None or mesh.is_lead
     os.makedirs(output_path, exist_ok=True)
     loss_kw = dict(loss_type=loss_type, include_geo=include_geo,
                    geo_loss_gamma_horz=geo_loss_gamma_horz,
@@ -146,9 +174,10 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
         n = 0
         for imgs, hms, pts, _, _ in train_loader:
             total, loc, geo = rektnet_train_step(
-                model, opt, *_on(device, imgs, hms, pts),
+                model, opt, *_on(device, imgs, hms, pts, mesh),
                 compute_dtype="bfloat16" if mixed_precision else "float32",
-                synth_target_sigma=1.0 if device_targets else 0.0, **loss_kw)
+                synth_target_sigma=1.0 if device_targets else 0.0, mesh=mesh,
+                **loss_kw)
             sums += torch.stack([loc, geo, total]).double()
             n += 1
         tl = (sums / max(n, 1)).tolist()  # one host read per epoch
@@ -160,7 +189,7 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
 
         if val_loss < best_val_loss:
             best_val_loss, best_epoch, tolerance = val_loss, epoch, 0
-            if save_checkpoints:
+            if save_checkpoints and lead:
                 params, state = model.trees()
                 onnx_uri = os.path.join(
                     output_path, f"best_keypoints_{input_size[0]}{input_size[1]}.onnx")
@@ -170,7 +199,8 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
         else:
             tolerance += 1
 
-        if save_checkpoints and epoch != 0 and (epoch + 1) % checkpoint_interval == 0:
+        if (save_checkpoints and lead and epoch != 0
+                and (epoch + 1) % checkpoint_interval == 0):
             pt_path = os.path.join(output_path, f"{epoch}_loss_{round(val_loss, 2)}.pt")
             print(f"Saving model to {pt_path}")
             save_rektnet_pt(pt_path, model, epoch=epoch, optimizer=opt)
@@ -179,8 +209,9 @@ def train_rektnet(model, opt, train_loader: Iterable, val_loader: Iterable, *,
                   f"Epoch {best_epoch} is has the best validation loss.")
             break
 
-    print_kpt_l2_distance(model, val_loader, kpt_keys, input_size, loss_kw,
-                          device, log_dir, study_name)
+    if lead:
+        print_kpt_l2_distance(model, val_loader, kpt_keys, input_size, loss_kw,
+                              device, log_dir, study_name)
     return best_val_loss, best_epoch, epoch
 
 
@@ -205,7 +236,7 @@ def main(*, train_dataset_uri: str, dataset_path: str, output_path: str = "outpu
          device_targets: bool = False, resume: bool = False,
          vis_upload_data: bool = False, post_run_shutdown: bool = False,
          kpt_keys: Sequence[str] = tuple(DEFAULT_KEYPOINT_KEYS), device="cuda",
-         log_dir: str = "logs"):
+         log_dir: str = "logs", mesh=None):
     """The JAX package's ``main`` on ``device`` (the card unless the caller
     asks for the CPU; a missing card raises): the label CSV and its crops →
     loaders → ``train_rektnet``. The initial weights come from
@@ -217,13 +248,20 @@ def main(*, train_dataset_uri: str, dataset_path: str, output_path: str = "outpu
     epoch (the JAX package keeps an orbax tree beside it for that). ``evaluate_mode`` only writes the keypoint distances.
     ``vis_upload_data`` renders the training split with its keypoints
     into ``<output_path>/visualization`` and stops (then shuts the machine
-    down with ``post_run_shutdown``, as the reference does). Returns the
-    best validation loss (None after ``vis_upload_data``)."""
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            "n_devices: training on several devices is not ported "
-            "(ROADMAP Queue 1 item 8, multi-device)")
-    dev = resolve_device(device)
+    down with ``post_run_shutdown``, as the reference does). ``n_devices``
+    > 1 launches that many ranks (``parallel/launch.py``: ``cuda:0``… on
+    the card, raising where fewer exist; CPU processes over ``gloo`` with
+    ``device="cpu"``), each running this function on its process ``mesh``,
+    and returns rank 0's result. Returns the best validation loss (None
+    after ``vis_upload_data``)."""
+    kwargs = dict(locals())  # first statement: the call's arguments only
+    if n_devices is not None and n_devices < 1:
+        raise ValueError(f"n_devices must be ≥ 1, got {n_devices}")
+    if mesh is None and (n_devices or 1) > 1 and not vis_upload_data:
+        del kwargs["mesh"]
+        return launch(run_on_rank, rank_devices(n_devices, device),
+                      args=(main, kwargs))
+    dev = resolve_device(device) if mesh is None else mesh.device
     os.makedirs(output_path, exist_ok=True)
     if mixed_precision == "auto":
         mixed_precision = dev.type == "cuda"
@@ -251,6 +289,8 @@ def main(*, train_dataset_uri: str, dataset_path: str, output_path: str = "outpu
     else:
         params, state = rektnet.init(torch.Generator().manual_seed(seed), num_kpt=num_kpt)
     model = rektnet.KeypointNet(params, state).to(dev)
+    if mesh is not None:
+        replicate(mesh, model)
     opt = make_optimizer(model.parameters(), "Adam", lr=lr)
     start_epoch = 0
     latest = latest_checkpoint(output_path) if resume else None
@@ -262,8 +302,9 @@ def main(*, train_dataset_uri: str, dataset_path: str, output_path: str = "outpu
                    geo_loss_gamma_horz=geo_loss_gamma_horz,
                    geo_loss_gamma_vert=geo_loss_gamma_vert, cross_batch=cross_batch)
     if evaluate_mode:
-        print_kpt_l2_distance(model, val_loader, kpt_keys, input_size, loss_kw, dev,
-                              log_dir, study_name, evaluate_mode=True)
+        if mesh is None or mesh.is_lead:
+            print_kpt_l2_distance(model, val_loader, kpt_keys, input_size, loss_kw,
+                                  dev, log_dir, study_name, evaluate_mode=True)
         return float("inf")
     best, _, _ = train_rektnet(
         model, opt, train_loader, val_loader, output_path=output_path, device=dev,
@@ -271,5 +312,6 @@ def main(*, train_dataset_uri: str, dataset_path: str, output_path: str = "outpu
         mixed_precision=bool(mixed_precision), device_targets=device_targets,
         checkpoint_interval=checkpoint_interval, save_checkpoints=save_checkpoints,
         input_size=input_size, study_name=study_name, kpt_keys=kpt_keys,
-        start_epoch=start_epoch, log_dir=log_dir, **loss_kw)
+        start_epoch=start_epoch, log_dir=log_dir, mesh=mesh, **loss_kw)
     return best
+

@@ -10,6 +10,14 @@ The model holds f32 master parameters and the BN running stats
 for the compute, as the JAX step casts its parameter tree (not
 ``torch.autocast``, which rounds elsewhere), while batch statistics, the
 loss and the update stay f32.
+
+Several devices: every step takes ``mesh``, a process mesh
+(``parallel/mesh.py``) of which this process is one rank, its inputs this
+rank's rows of the global batch. Batch norm takes the global batch's
+statistics, the losses are this rank's shares of the global loss, the
+gradients are summed over the ranks before the clip and the update (so the
+parameters, running stats and optimizer state stay equal on every rank),
+and the losses returned are the global ones, equal on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.cross_ratio_loss import (
 from mit_driverless_cv_traininginfra_tpu_torch.models.yolo_loss import yolo_loss
 from mit_driverless_cv_traininginfra_tpu_torch.ops import device_aug
 from mit_driverless_cv_traininginfra_tpu_torch.ops.heatmap import gaussian_heatmaps
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import all_sum_
 from mit_driverless_cv_traininginfra_tpu_torch.train.optim import optimizer_step
 
 
@@ -40,7 +49,8 @@ def _compute_dtype(name: str) -> torch.dtype:
 
 def yolo_train_step(model, opt, images, targets, xy_loss: float = 2.0,
                     wh_loss: float = 1.6, object_loss: float = 0.1,
-                    no_object_loss: float = 25.0, compute_dtype: str = "float32"):
+                    no_object_loss: float = 25.0, compute_dtype: str = "float32",
+                    mesh=None):
     """One step on (B, H, W, 3) ``images`` in [0, 1] and (B, T, 5)
     ``targets`` (normalised ``[class, cx, cy, w, h]``, zero rows are
     padding), both on the model's device. Updates the :class:`TrainDarknet`'s
@@ -51,19 +61,19 @@ def yolo_train_step(model, opt, images, targets, xy_loss: float = 2.0,
     dtype = _compute_dtype(compute_dtype)
     opt.zero_grad(set_to_none=True)
     heads = [h.float() for h in model.forward_features(images, train=True,
-                                                       dtype=dtype)]
+                                                       dtype=dtype, mesh=mesh)]
     loss, comps = yolo_loss(model.spec, heads, targets, xy_loss, wh_loss,
-                            object_loss, no_object_loss)
+                            object_loss, no_object_loss, mesh=mesh)
     loss.backward()
-    optimizer_step(opt)
-    return loss.detach(), comps.detach()
+    optimizer_step(opt, mesh)
+    return _global(mesh, loss.detach(), comps.detach())
 
 
 def yolo_train_step_device_aug(model, opt, images, labels_px, draws: dict,
                                xy_loss: float = 2.0, wh_loss: float = 1.6,
                                object_loss: float = 0.1,
                                no_object_loss: float = 25.0,
-                               compute_dtype: str = "float32"):
+                               compute_dtype: str = "float32", mesh=None):
     """:func:`yolo_train_step` with the augmentation on the device in front
     of it (the JAX package's ``yolo_train_step_device_aug``): ``images``
     (B, H, W, C) as the dataset made them (``device_aug=True``: patched,
@@ -72,25 +82,38 @@ def yolo_train_step_device_aug(model, opt, images, labels_px, draws: dict,
     ``ops.device_aug.sample_draws`` on that device. The batch is augmented
     (``device_aug.apply``), its labels normalised to ``[c, cx, cy, w, h]``
     with the zero rows kept, and then stepped as :func:`yolo_train_step`
-    steps. No host sync."""
+    steps. No host sync. Under a ``mesh`` the draws are the global batch's
+    and this rank takes its rows of them."""
     _, H, W, _ = images.shape
+    if mesh is not None:
+        draws = {k: v[mesh.rows(v.shape[0])] for k, v in draws.items()}
     images, labels_px = device_aug.apply(images, labels_px, draws)
     targets = device_aug.pixel_labels_to_targets(labels_px, H, W)
     return yolo_train_step(model, opt, images, targets, xy_loss=xy_loss,
                            wh_loss=wh_loss, object_loss=object_loss,
                            no_object_loss=no_object_loss,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, mesh=mesh)
+
+
+def _global(mesh, *shares):
+    """The global values of per-rank shares (one all-reduce for all of
+    them); the values themselves without a mesh."""
+    if mesh is None:
+        return shares
+    flat = all_sum_(torch.cat([x.reshape(-1) for x in shares]), mesh)
+    return tuple(v.reshape(x.shape) for v, x in
+                 zip(flat.split([x.numel() for x in shares]), shares))
 
 
 @torch.no_grad()
 def yolo_eval_step(model, images, targets, xy_loss: float = 2.0,
                    wh_loss: float = 1.6, object_loss: float = 0.1,
-                   no_object_loss: float = 25.0):
+                   no_object_loss: float = 25.0, mesh=None):
     """Eval-mode forward (running stats, f32) and the loss: ``(loss,
-    components (6,))``."""
+    components (6,))``, global under a ``mesh``."""
     heads = model.forward_features(images, train=False)
-    return yolo_loss(model.spec, heads, targets, xy_loss, wh_loss,
-                     object_loss, no_object_loss)
+    return _global(mesh, *yolo_loss(model.spec, heads, targets, xy_loss, wh_loss,
+                                    object_loss, no_object_loss, mesh=mesh))
 
 
 def rektnet_train_step(model, opt, images, target_hm, target_points,
@@ -98,7 +121,7 @@ def rektnet_train_step(model, opt, images, target_hm, target_points,
                        geo_loss_gamma_horz: float = 0.0,
                        geo_loss_gamma_vert: float = 0.0, cross_batch: bool = True,
                        compute_dtype: str = "float32",
-                       synth_target_sigma: float = 0.0):
+                       synth_target_sigma: float = 0.0, mesh=None):
     """One step on (B, H, W, 3) ``images``, (B, K, H, W) ``target_hm`` and
     (B, K, 2) ``target_points``, all on the model's device. Updates the
     model's parameters (through ``opt``) and BN running stats in place;
@@ -121,26 +144,31 @@ def rektnet_train_step(model, opt, images, target_hm, target_points,
         target_hm = gaussian_heatmaps(target_points, images.shape[1],
                                       images.shape[2], sigma=synth_target_sigma)
     opt.zero_grad(set_to_none=True)
-    hm, pts = model(images, train=True, dtype=dtype, points_dtype=torch.float32)
+    hm, pts = model(images, train=True, dtype=dtype, points_dtype=torch.float32,
+                    mesh=mesh)
     loc, geo, total = cross_ratio_loss(
         hm.float(), pts.float(), target_hm, target_points, loss_type=loss_type,
         include_geo=include_geo, geo_loss_gamma_horz=geo_loss_gamma_horz,
-        geo_loss_gamma_vert=geo_loss_gamma_vert, cross_batch=cross_batch)
+        geo_loss_gamma_vert=geo_loss_gamma_vert, cross_batch=cross_batch,
+        mesh=mesh)
     total.backward()
-    optimizer_step(opt)
-    return total.detach(), loc.detach(), geo.detach()
+    optimizer_step(opt, mesh)
+    return _global(mesh, total.detach(), loc.detach(), geo.detach())
 
 
 @torch.no_grad()
 def rektnet_eval_step(model, images, target_hm, target_points,
                       loss_type: str = "l1_softargmax", include_geo: bool = True,
                       geo_loss_gamma_horz: float = 0.0,
-                      geo_loss_gamma_vert: float = 0.0, cross_batch: bool = True):
+                      geo_loss_gamma_vert: float = 0.0, cross_batch: bool = True,
+                      mesh=None):
     """Eval-mode forward (running stats, f32) and losses: ``(total,
-    location, geo, points (B, K, 2))``."""
+    location, geo, points (B, K, 2))``; under a ``mesh`` the losses are
+    global and the points this rank's rows."""
     hm, pts = model(images, train=False)
     loc, geo, total = cross_ratio_loss(
         hm, pts, target_hm, target_points, loss_type=loss_type,
         include_geo=include_geo, geo_loss_gamma_horz=geo_loss_gamma_horz,
-        geo_loss_gamma_vert=geo_loss_gamma_vert, cross_batch=cross_batch)
-    return total, loc, geo, pts
+        geo_loss_gamma_vert=geo_loss_gamma_vert, cross_batch=cross_batch,
+        mesh=mesh)
+    return (*_global(mesh, total, loc, geo), pts)

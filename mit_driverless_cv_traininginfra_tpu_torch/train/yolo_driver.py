@@ -23,8 +23,18 @@ tensors on the device; numpy reaches the card through
 pixel corners and the step augments on the device
 (``train.steps.yolo_train_step_device_aug``).
 
-Not here yet: the space-to-depth training stem (``packed_stem``) and
-several devices (``n_devices``).
+Several devices (``main(n_devices=N)``, N > 1): N ranks, one a device,
+through ``parallel/launch.py`` (``nccl`` on N cards, ``gloo`` on the CPU),
+each running the same loop on a process mesh. Every rank reads the same
+batches (same seed, same order), pads a partial one to a multiple of N by
+repeating samples (the JAX driver's ``pad_pair``), and keeps its rows; the
+steps take the global batch's BN statistics and loss and sum the
+gradients, so the parameters follow the one-device run on the whole batch.
+``validate_map`` gathers the per-image evaluations into one mAP. Only
+rank 0 writes weights, state, scores and the ONNX file, and only rank 0
+prints.
+
+Not here yet: the space-to-depth training stem (``packed_stem``).
 """
 
 from __future__ import annotations
@@ -55,6 +65,16 @@ from mit_driverless_cv_traininginfra_tpu_torch.ops.device_aug import sample_draw
 from mit_driverless_cv_traininginfra_tpu_torch.ops.metrics import (
     evaluate_image_batch,
 )
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.launch import (
+    launch,
+    rank_devices,
+    run_on_rank,
+)
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import (
+    all_gather,
+    pad_batch_to_devices,
+    replicate,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.train.checkpoints import (
     load_yolo_state,
     save_yolo_state,
@@ -81,34 +101,44 @@ LOSS_LABELS = ["Total", "L-x", "L-y", "L-w", "L-h", "L-noobj", "L-obj"]
 STATE_FILE = "state_latest.pt"  # the full train state; its epoch in .meta
 
 
-def _with_host_counts(batches):
+def _with_host_counts(batches, n_dev: int = 1):
     """Count each batch's targets on the host, before the copy to the card
-    (a count on the card would be a host read a step). Images already on
-    the device (a pool's) pass through."""
+    (a count on the card would be a host read a step). Host batches are
+    first padded to a multiple of ``n_dev`` by repeating samples (counted
+    as the JAX driver counts its padded batch). Images already on the
+    device (a pool's, full batches) pass through."""
     for uris, imgs, labels in batches:
         labels = np.asarray(labels, np.float32)
-        n_t = float(((labels[:, :, 1:5] > 0).sum(axis=2) > 1).sum()) + 1e-12
         if not torch.is_tensor(imgs):
             imgs = np.asarray(imgs, np.float32)
+            if n_dev > 1:
+                imgs, _ = pad_batch_to_devices(imgs, n_dev)
+                labels, _ = pad_batch_to_devices(labels, n_dev)
+        n_t = float(((labels[:, :, 1:5] > 0).sum(axis=2) > 1).sum()) + 1e-12
         yield uris, imgs, labels, n_t
 
 
 def run_epoch(*, label_prefix: str, data_loader, model, opt, device,
               num_steps: int, step, epoch: int, loss_consts, optimize: bool,
               compute_dtype: str = "float32", lr_warmup=None,
-              aug_gen=None, aug_flags=None):
+              aug_gen=None, aug_flags=None, mesh=None):
     """One pass over ``data_loader``, training or (``optimize=False``)
     evaluating. ``step`` is a one-element list, the global step count.
     ``aug_gen`` (a ``torch.Generator`` on ``device``) turns on the
-    device-aug step, each batch's draws taken from it with ``aug_flags``.
-    Returns ``(epoch_losses[7], epoch_time_total, epoch_num_targets)``."""
+    device-aug step, each batch's draws taken from it with ``aug_flags``
+    (the global batch's draws: each rank takes its rows). Under a process
+    ``mesh`` this rank steps on its rows of each padded global batch; the
+    losses are global. Returns ``(epoch_losses[7], epoch_time_total,
+    epoch_num_targets)``."""
     print(f"Model in {label_prefix} mode")
     epoch_losses = [0.0] * 7
     epoch_time_total = 0.0
     epoch_num_targets = 1e-12
     t1 = time.time()
     xy, wh, obj, noobj = loss_consts
-    it = prefetch_to_device(_with_host_counts(iter(data_loader)), device)
+    n_dev = 1 if mesh is None else mesh.size
+    it = prefetch_to_device(_with_host_counts(iter(data_loader), n_dev), device,
+                            mesh=mesh)
     for i, (_, imgs, targets, step_num_targets) in enumerate(it):
         if step[0] >= num_steps:
             break
@@ -122,20 +152,21 @@ def run_epoch(*, label_prefix: str, data_loader, model, opt, device,
             elif step[0] == warm_n:
                 set_lr(opt, epoch_lr)
         if optimize and aug_gen is not None:
-            draws = sample_draws(aug_gen, *imgs.shape, **(aug_flags or {}))
+            draws = sample_draws(aug_gen, imgs.shape[0] * n_dev, *imgs.shape[1:],
+                                 **(aug_flags or {}))
             loss, comps = yolo_train_step_device_aug(
                 model, opt, imgs, targets, draws, xy_loss=xy, wh_loss=wh,
                 object_loss=obj, no_object_loss=noobj,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, mesh=mesh)
         elif optimize:
             loss, comps = yolo_train_step(
                 model, opt, imgs, targets, xy_loss=xy, wh_loss=wh,
                 object_loss=obj, no_object_loss=noobj,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, mesh=mesh)
         else:
             loss, comps = yolo_eval_step(model, imgs, targets, xy_loss=xy,
                                          wh_loss=wh, object_loss=obj,
-                                         no_object_loss=noobj)
+                                         no_object_loss=noobj, mesh=mesh)
         losses = torch.cat([loss.reshape(1), comps]).tolist()  # one host read
         for j in range(7):
             epoch_losses[j] += losses[j]
@@ -153,22 +184,35 @@ def run_epoch(*, label_prefix: str, data_loader, model, opt, device,
 
 
 @torch.no_grad()
-def validate_map(*, data_loader: Iterable, model, device="cuda", top_k: int = 200):
+def validate_map(*, data_loader: Iterable, model, device="cuda", top_k: int = 200,
+                 mesh=None):
     """mAP, recall, precision over ``data_loader`` (the reference's
     ``validate.validate``) with the unfolded eval forward in f32, and the
-    seconds per image. Returns ``(mAP, recall, precision, s_per_image)``."""
+    seconds per image. Under a process ``mesh`` each rank evaluates its
+    rows of each batch (padded to a multiple of the mesh by repeating) and
+    the per-image evaluations are gathered, the padding dropped: one mAP,
+    the one-device one. Returns ``(mAP, recall, precision, s_per_image)``."""
     dev = resolve_device(device)
     net = model.spec.net
     t0 = time.time()
     evs, n_images = [], 0
     for _, imgs, targets in data_loader:
-        n_images += imgs.shape[0]
-        imgs = torch.as_tensor(np.asarray(imgs, np.float32), device=dev)
-        targets = torch.as_tensor(np.asarray(targets, np.float32), device=dev)
+        n_real = imgs.shape[0]
+        n_images += n_real
+        imgs, targets = np.asarray(imgs, np.float32), np.asarray(targets, np.float32)
+        if mesh is not None:
+            imgs, _ = pad_batch_to_devices(imgs, mesh.size)
+            targets, _ = pad_batch_to_devices(targets, mesh.size)
+            rows = mesh.rows(imgs.shape[0])
+            imgs, targets = imgs[rows], targets[rows]
+        imgs = torch.as_tensor(imgs, device=dev)
+        targets = torch.as_tensor(targets, device=dev)
         ev = evaluate_image_batch(model.detections(imgs), targets, net.width,
                                   net.height, conf_thresh=net.conf_thresh,
                                   nms_thresh=net.nms_thresh,
                                   iou_thresh=net.iou_thresh, top_k=top_k)
+        if mesh is not None:
+            ev = [all_gather(x.float(), mesh)[:n_real].to(x.dtype) for x in ev]
         evs.append([x.cpu().numpy() for x in ev])
     valid = (np.concatenate([e[3] for e in evs]) if evs
              else np.zeros((0,), bool))  # an empty validation set
@@ -191,7 +235,8 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
                val_tolerance: int = 3, min_epochs: int = 3,
                mixed_precision: bool = False, resume: bool = False,
                evaluate: bool = False, log_dir: str = "logs", device_aug: bool = False,
-               aug_flags=None, seed: int = 17, train_dataset=None) -> float:
+               aug_flags=None, seed: int = 17, train_dataset=None,
+               mesh=None) -> float:
     """The reference's epoch loop (the JAX ``yolo_driver.main`` after it
     has built its loaders) on ``model``, a :class:`TrainDarknet` on
     ``device`` (the card unless the caller asks for the CPU; a missing
@@ -208,8 +253,11 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
     when None). ``train_dataset``, when given, has ``set_epoch(epoch)``
     called at the top of each epoch (fresh per-item draws). The early stop
     writes ``spec.net.onnx_name(model_cfg)`` under ``output_path``:
-    ``model_cfg`` is the path of the cfg ``model`` was built from."""
+    ``model_cfg`` is the path of the cfg ``model`` was built from.
+    ``mesh``: this rank's process mesh (each rank runs this loop on its
+    rows; rank 0 alone writes files)."""
     device = resolve_device(device)
+    lead = mesh is None or mesh.is_lead
     spec = model.spec
     os.makedirs(output_path, exist_ok=True)
     state_path = os.path.join(output_path, STATE_FILE)
@@ -238,19 +286,20 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
                   epoch=epoch, loss_consts=loss_consts, optimize=True,
                   compute_dtype="bfloat16" if mixed_precision else "float32",
                   lr_warmup=(lr_warmup_steps, epoch_lr) if lr_warmup_steps else None,
-                  aug_gen=aug_gen, aug_flags=aug_flags)
+                  aug_gen=aug_gen, aug_flags=aug_flags, mesh=mesh)
         print("Completed epoch: ", epoch)
 
         if epoch % checkpoint_interval == 0 or epoch == num_epochs or step[0] >= num_steps:
-            params, state = model.trees()
-            save_darknet_weights(spec, params, state,
-                                 os.path.join(output_path, f"{epoch}.weights"))
-            save_yolo_state(state_path, model, opt, step[0], epoch)
+            if lead:
+                params, state = model.trees()
+                save_darknet_weights(spec, params, state,
+                                     os.path.join(output_path, f"{epoch}.weights"))
+                save_yolo_state(state_path, model, opt, step[0], epoch)
             print("Calculating loss on validate data")
             epoch_losses, _, epoch_num_targets = run_epoch(
                 label_prefix="validate", data_loader=val_loader, model=model,
                 opt=opt, device=device, num_steps=10**12, step=step,
-                epoch=epoch, loss_consts=loss_consts, optimize=False)
+                epoch=epoch, loss_consts=loss_consts, optimize=False, mesh=mesh)
             avg_epoch_loss = epoch_losses[0] / epoch_num_targets
             print("Average Validation Loss: {0:10.6f}".format(avg_epoch_loss))
             if avg_epoch_loss > val_loss and epoch > min_epochs:
@@ -261,16 +310,18 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
                 print("Validation loss decreased. Yay!!")
                 val_loss_counter = 0
                 val_loss = avg_epoch_loss
-                write_score_file(os.path.join(log_dir, "result.txt"), avg_epoch_loss)
-            validate_map(data_loader=val_loader, model=model, device=device)
+                if lead:
+                    write_score_file(os.path.join(log_dir, "result.txt"), avg_epoch_loss)
+            validate_map(data_loader=val_loader, model=model, device=device, mesh=mesh)
             if val_loss_counter == val_tolerance:
                 print(f"Validation loss stopped decreasing over the last "
                       f"{val_tolerance} checkpoints, creating onnx file")
-                export_yolo_onnx(spec, *model.trees(),
-                                 os.path.join(output_path, spec.net.onnx_name(model_cfg)))
+                if lead:
+                    export_yolo_onnx(spec, *model.trees(), os.path.join(
+                        output_path, spec.net.onnx_name(model_cfg)))
                 break
     if evaluate:
-        validate_map(data_loader=val_loader, model=model, device=device)
+        validate_map(data_loader=val_loader, model=model, device=device, mesh=mesh)
     return val_loss
 
 
@@ -296,24 +347,30 @@ def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
          preload_budget_gb: float = 6.0,
          debug_mode: bool = False, evaluate: bool = False,
          num_workers: int = 8, n_devices: Optional[int] = None,
-         seed: int = 17, device="cuda") -> float:
+         seed: int = 17, device="cuda", mesh=None) -> float:
     """The JAX driver's ``main`` on ``device`` (the card unless the caller
     asks for the CPU; a missing card raises). ``mixed_precision="auto"``
     is bf16 compute on the card and f32 on the CPU. ``preload_device``
     trains from a :class:`DevicePool` of the training set (bf16 under
     mixed precision). The initial weights come from ``init_params`` with
     ``torch.Generator().manual_seed(seed)``, or from ``weights_path``.
-    ``packed_stem`` and several devices raise: not ported. Returns the
-    best validation loss."""
+    ``n_devices`` > 1 launches that many ranks (``parallel/launch.py``:
+    ``cuda:0``… on the card, raising where fewer exist; CPU processes over
+    ``gloo`` with ``device="cpu"``), each running this function on its
+    process ``mesh``, and returns rank 0's result. ``packed_stem`` raises:
+    not ported. Returns the best validation loss."""
+    kwargs = dict(locals())  # first statement: the call's arguments only
     if packed_stem:
         raise NotImplementedError(
             "packed_stem: the space-to-depth training stem is not ported "
             "(ROADMAP Queue 2 item 5, training)")
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            "n_devices: training on several devices is not ported "
-            "(ROADMAP Queue 1 item 8, multi-device)")
-    dev = resolve_device(device)
+    if n_devices is not None and n_devices < 1:
+        raise ValueError(f"n_devices must be ≥ 1, got {n_devices}")
+    if mesh is None and (n_devices or 1) > 1:
+        del kwargs["mesh"]
+        return launch(run_on_rank, rank_devices(n_devices, device),
+                      args=(main, kwargs))
+    dev = resolve_device(device) if mesh is None else mesh.device
     spec = load_network_spec(model_cfg, vanilla_anchor=vanilla_anchor)
     os.makedirs(output_path, exist_ok=True)
     os.makedirs("logs", exist_ok=True)
@@ -347,7 +404,7 @@ def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
             train_ds, num=preload_num, device=dev,
             budget_bytes=preload_budget_gb * 1e9,
             dtype=torch.bfloat16 if mixed_precision else torch.float32,
-            num_workers=num_workers)
+            num_workers=num_workers, mesh=mesh)
         print(f"Device pool: {len(pool)} samples, "
               f"{pool.nbytes / 1e9:.2f} GB in HBM")
         train_loader = pool.loader(bs, shuffle=True, seed=seed)
@@ -356,6 +413,8 @@ def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
     if weights_path:
         params, state, _ = load_darknet_weights(spec, params, state, weights_path)
     model = TrainDarknet(spec, params, state).to(dev)
+    if mesh is not None:
+        replicate(mesh, model)
     opt = make_optimizer(model.parameters(), optimizer_pick, lr=lr,
                          momentum=momentum, weight_decay=weight_decay,
                          grad_clip=grad_clip)
@@ -373,4 +432,5 @@ def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
         # their own flags in both modes
         aug_flags=dict(lr_flip=bool(lr_flip), jitter=bool(augment_hsv or data_aug),
                        noise=bool(noise)),
-        seed=seed, train_dataset=train_ds, model_cfg=model_cfg)
+        seed=seed, train_dataset=train_ds, model_cfg=model_cfg, mesh=mesh)
+

@@ -146,7 +146,8 @@ for mod in ("ops.tail_conv", "ops.window_resample", "ops.int8_contract",
             "ops.metrics", "data.loader", "train.yolo_driver", "utils.profiling",
             "data.uri", "data.yolo_csv", "data.raster", "data.augment",
             "data.yolo_dataset", "data.kmeans_anchors", "data.device_pool",
-            "ops.patches", "ops.device_aug", "cli.yolo_train", "cli.kmeans_csvs"):
+            "ops.patches", "ops.device_aug", "cli.yolo_train", "cli.kmeans_csvs",
+            "parallel.mesh", "parallel.launch", "parallel.dryrun", "infer.pp"):
     assert "mit_driverless_cv_traininginfra_tpu_torch." + mod in sys.modules, mod
 
 assert "jax" not in sys.modules, "the port imported jax"
@@ -360,7 +361,8 @@ def test_no_file_of_the_port_reaches_into_the_jax_package():
     assert {"export/onnx_writer.py", "export/onnx_eval.py", "export/yolo2onnx.py",
             "export/pt_to_onnx.py", "hyper/search.py", "cli/yolo2onnx.py",
             "cli/pt_to_onnx.py", "cli/yolo_hyper.py", "cli/rektnet_hyper.py",
-            "tools/train_to_map.py"} <= names
+            "tools/train_to_map.py", "parallel/mesh.py", "parallel/launch.py",
+            "parallel/dryrun.py", "infer/pp.py"} <= names
     found = {str(p.relative_to(REPO)): hits for p in files
              if (hits := list(_jax_package_uses(ast.parse(p.read_text(), str(p)))))}
     assert not found, found
@@ -441,3 +443,4 @@ def test_export_hyper_and_train_to_map_need_no_jax_or_optax():
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "export-hyper ok" in proc.stdout
+

@@ -204,8 +204,10 @@ def test_entry_points_raise_without_a_card(crops):
                             dataset_path=str(d / "images"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rektnet_detect.main(["--model", str(d / "init.pt"), "--img", "x.png"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        rektnet_driver.main(train_dataset_uri="x", dataset_path="y", n_devices=2,
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rektnet_driver.main(train_dataset_uri="x", dataset_path="y", n_devices=2)
+    with pytest.raises(ValueError, match="n_devices must be ≥ 1"):
+        rektnet_driver.main(train_dataset_uri="x", dataset_path="y", n_devices=0,
                             device="cpu")
 
 

@@ -183,14 +183,19 @@ def test_num_steps_and_evaluate(tmp_path):
 
 def test_unported_modes_raise(tmp_path):
     """The driver's modes that are not ported raise, naming the ROADMAP
-    item that will port them (``device_aug`` and the dataset's
-    ``vis_batch`` are ported now)."""
+    item that will port them (``device_aug``, the dataset's ``vis_batch``
+    and several devices are ported now): the space-to-depth stem. Several
+    devices refuse what cannot run: fewer than one, or more ranks than
+    CUDA devices (no fallback to fewer)."""
     kw = dict(model_cfg="tests/fixtures/tiny_test.cfg", weights_path=None,
               output_path=str(tmp_path), dataset_path=str(tmp_path), device="cpu")
-    for extra, item in ((dict(packed_stem=True), "Queue 2 item 5"),
-                        (dict(n_devices=4), "Queue 1 item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            yolo_driver.main(**kw, **extra)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+        yolo_driver.main(**kw, packed_stem=True)
+    with pytest.raises(ValueError, match="n_devices must be ≥ 1"):
+        yolo_driver.main(**kw, n_devices=0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            yolo_driver.main(**dict(kw, device="cuda"), n_devices=4)
 
 
 class _Items:
