@@ -148,7 +148,24 @@ synthetic scenes, and checks its hand-written CUDA kernels:
    microbatches, one over capacity (masks, boxes, scores bit-equal,
    keypoints within 1e-3 px; K1-K3 once a microbatch); and ``python -m
    …parallel.dryrun --n_devices 1`` (seven OK lines). Nothing here runs
-   on several GPUs: the card's machine has one.
+   on several GPUs: the card's machine has one;
+16. tensor-parallel and spatial sharding (``phase_tp_spatial``, its
+   seconds printed and held under ``TP_PHASE_S``): the TP × DP YOLOv3-416
+   step (B=4, f32 SGD with momentum, two steps, cuDNN off) on a data 1 ×
+   model 2 mesh over ``gloo`` with both ranks on this card, and on a 1 × 1
+   mesh over NCCL, each against the one-process step at ``DP_*``'s
+   bounds, its step ms and each rank's parameter and momentum MiB beside
+   the one-process figures (``gloo`` on one card stages every collective
+   through the host: a correctness path, not a speed); the spatially
+   sharded 416² detections on two ``gloo`` ranks (frame rows 224 and 192)
+   against one process (f32, no TF32, cuDNN off; ``SP_*``: the bounded
+   columns within rtol 1e-5, atol 1e-4, every column no further from a
+   float64 evaluation than twice one process's distance), the halo bytes
+   a rank beside one whole activation; and ``python
+   -m …parallel.dryrun --n_devices 4 --device cpu`` (nine OK lines). The
+   one-process reference runs first, alone; the two launches, the dry run
+   and the float64 evaluation then run at once, and the phase prints each
+   part's seconds.
 
 Prints one JSON line of per-kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Each row's ``launches`` is counted over
@@ -3446,6 +3463,176 @@ def phase_multi_device(dev, smi, rows: dict, frames_np, thresh, thresh_q, bundle
     log(f"phase multi_device: {time.perf_counter() - t0:.1f} s on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: tensor-parallel and spatial sharding (parallel/mesh.py Mesh2D)
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 2
+TP_PHASE_S = 150
+# the spatial forward against one process: box centres, confidences and
+# class scores within rtol 1e-5, atol 1e-4 (centres reach 416, where the
+# f32 ulp is 3.1e-5). The widths and heights are exp(t)·anchor and reach
+# 3.7e4 px on these random weights, where one process itself sits 1.14e-5
+# (relative) from the float64 evaluation and the spatial run 7.7e-6 (as
+# this phase prints them on an NVIDIA H100 80GB HBM3 at 700 W), so every
+# column is held to the float64 evaluation instead: the spatial run's
+# largest relative error (over max(|value|, 1)) at most SP_FLOOR times one
+# process's
+SP_RTOL, SP_ATOL, SP_FLOOR = 1e-5, 1e-4, 2.0
+
+
+def largest_activation_bytes(spec, B: int) -> int:
+    """The largest f32 block output of ``spec`` on a whole B×SIZE² batch."""
+    from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import block_strides
+
+    return max(B * (SIZE // s) ** 2 * c * 4
+               for s, c in zip(block_strides(spec), spec.out_channels[1:]))
+
+
+def f64_detections(spec, trees, imgs, dev) -> np.ndarray:
+    """The eval detections of ``trees`` with the network in float64 on the
+    card, cuDNN off (``decode_head`` decodes in f32)."""
+    from mit_driverless_cv_traininginfra_tpu_torch import convert
+    from mit_driverless_cv_traininginfra_tpu_torch.models import darknet
+
+    model = darknet.TrainDarknet(spec, convert.from_jax(trees[0], dev),
+                                 convert.from_jax(trees[1], dev)).to(dev).double()
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=False):
+        x = torch.from_numpy(imgs).to(dev, torch.float64)
+        return model.detections(x, dtype=torch.float64).cpu().numpy()
+
+
+def rel_err(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest |got − want| / max(|want|, 1)."""
+    want = want.astype(np.float64)
+    return float((np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max())
+
+
+def timed_launch(devices, backend: str, shape: tuple, jobs: list):
+    """``launch(run_jobs, …)`` of ``jobs`` on a ``shape`` mesh; rank 0's
+    results and the launch's wall seconds."""
+    from mit_driverless_cv_traininginfra_tpu_torch.parallel.dryrun import run_jobs
+    from mit_driverless_cv_traininginfra_tpu_torch.parallel.launch import launch
+
+    t = time.perf_counter()
+    got = launch(run_jobs, devices, args=(jobs,), backend=backend, mesh_shape=shape)
+    return got, time.perf_counter() - t
+
+
+def phase_tp_spatial(dev, smi) -> None:
+    """Phase 16: the TP × DP YOLO step over ``model`` 2 (gloo, both ranks on
+    this card, which also run the spatial forward) and 1 × 1 (NCCL)
+    against one process, and the CPU dry run at N = 4 in a process of its
+    own. The reference runs first, alone on the card; then the two
+    launches and the dry run run at once (each launch spends most of its
+    time starting its ranks and staging collectives through the host), the
+    float64 evaluation beside them in this process."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mit_driverless_cv_traininginfra_tpu_torch import convert
+    from mit_driverless_cv_traininginfra_tpu_torch.data import synthetic
+    from mit_driverless_cv_traininginfra_tpu_torch.parallel.dryrun import run_jobs
+
+    t0 = time.perf_counter()
+    secs = {}
+    # the dry run's ranks take one thread each; its own process two
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "mit_driverless_cv_traininginfra_tpu_torch.parallel.dryrun",
+         "--n_devices", "4", "--device", "cpu"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(os.environ, OMP_NUM_THREADS="2"))
+
+    def dry_wait():
+        out = dry.communicate(timeout=300)
+        secs["dry run"] = time.perf_counter() - t0
+        return out
+
+    try:
+        spec = yolo_spec()
+        rng = np.random.default_rng(17)
+        imgs, targets = synthetic.yolo_batch(rng, DP_YOLO_B, SIZE)
+        trees = convert.init_darknet_np(spec, rng)
+        job = dict(family="yolo", spec=spec, trees=trees, batch=(imgs, targets),
+                   step_kw=dict(YOLO_KW, compute_dtype="float32"), lr=1e-4, momentum=0.9,
+                   steps=TP_STEPS, cudnn=False)
+        sp_job = dict(family="spatial", spec=spec, trees=trees, batch=(imgs,), cudnn=False)
+        t1 = time.perf_counter()
+        bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False   # as the ranks run
+        one, sp1 = run_jobs(None, [job, sp_job], dev)
+        torch.backends.cudnn.benchmark = bench
+        secs["one process"] = time.perf_counter() - t1
+        runs = {"gloo_1x2": ([dev, dev], "gloo", (1, 2), [job, sp_job]),
+                "nccl_1x1": ([dev], "nccl", (1, 1), [job])}
+        with ThreadPoolExecutor(len(runs) + 1) as pool:
+            pending = {name: pool.submit(timed_launch, *run) for name, run in runs.items()}
+            dry_done = pool.submit(dry_wait)
+            t1 = time.perf_counter()
+            f64 = f64_detections(spec, trees, imgs, dev)
+            secs["float64"] = time.perf_counter() - t1
+            done = {name: f.result() for name, f in pending.items()}
+            out, errs = dry_done.result()
+        filters = spec.blocks[0].filters
+        for name, (got, took) in done.items():
+            shape = runs[name][2]
+            secs[name] = took
+            drift = dp_drift(got[0], one, trees)
+            held = got[0]["parts"][0][0]["0"]["w"].shape[-1]
+            log(f"tp {name}: launch, {TP_STEPS} steps"
+                f"{' and the spatial forward' * (len(got) > 1)} in {took:.1f} s; against "
+                f"one process {json.dumps(drift)}; step ms {got[0]['ms']!r} against one "
+                f"process's {one['ms']!r}; parameter + momentum MiB a rank "
+                f"{got[0]['mib']!r} against one process's {one['mib']!r}; conv 0 holds "
+                f"{held} of {filters} out-channels; {len(got[0]['collectives'])} model-axis "
+                f"collectives on rank 0 on {smi} (both launches ran at once on this card"
+                + ("; gloo stages every collective through the host" if runs[name][1] == "gloo"
+                   else "") + ": a correctness path, not a speed)")
+            dp_check(f"tp {name}", drift)
+            check(held == filters // shape[1], f"tp {name}: conv 0 holds {held} of "
+                  f"{filters} out-channels after the update")
+            check(all(np.isfinite(v).all() for v in got[0]["losses"]), f"tp {name}: loss")
+        sp = done["gloo_1x2"][0][1]
+        rows = [(r.start, r.stop) for r in sp["rows"]]
+        det, det1 = sp["det"], sp1["det"]
+        bounded = [0, 1] + list(range(4, det.shape[-1]))   # cx, cy, conf, classes
+        close = np.allclose(det[..., bounded], det1[..., bounded], rtol=SP_RTOL, atol=SP_ATOL)
+        err_sp, err_one = rel_err(det, f64), rel_err(det1, f64)
+        halos = [b for kind, _, b in sp["collectives"] if kind == "halo"]
+        gathers = [b for kind, _, b in sp["collectives"] if kind == "all_gather"]
+        full = largest_activation_bytes(spec, DP_YOLO_B)
+        log(f"spatial 416² B={DP_YOLO_B} on 2 gloo ranks (frame rows {rows}): detections "
+            f"{det.shape}, max |Δ| against one process by column "
+            f"{np.abs(det - det1).reshape(-1, det.shape[-1]).max(0).tolist()}, largest "
+            f"|value| {np.abs(det1).reshape(-1, det.shape[-1]).max(0).tolist()}; cx, cy, "
+            f"conf, classes within rtol {SP_RTOL}, atol {SP_ATOL}: {close}; relative error "
+            f"against float64: spatial {err_sp!r}, one process {err_one!r} (at most "
+            f"{SP_FLOOR}×); rank 0 sent {len(halos)} halos, {sum(halos)} bytes in all, the "
+            f"largest {max(halos)}, against one whole activation of {full} bytes; gathered "
+            f"the heads' maps in {sum(gathers)} bytes; forward ms {sp['ms']!r} against one "
+            f"process's {sp1['ms']!r} on {smi} (gloo on one card, beside the other launch: "
+            "a correctness path, not a speed)")
+        check(rows == [(0, 224), (224, 416)], f"spatial: frame rows {rows}")
+        check(close and np.isfinite(det).all(), "spatial: detections differ from one process's")
+        check(err_sp <= SP_FLOOR * err_one, f"spatial: {err_sp} from float64, one process "
+              f"{err_one}")
+        check(halos and max(halos) <= full / 4, "spatial: a halo over 1/4 of an activation")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    lines = out.splitlines()
+    for line in lines:
+        log(line)
+    check(dry.returncode == 0 and sum(ln.endswith(" OK") for ln in lines) == 9,
+          f"dryrun N=4 on the CPU failed (rc {dry.returncode}): {errs[-2000:]}")
+    took = time.perf_counter() - t0
+    log(f"tp_spatial seconds by part (the launches, the dry run and float64 at once; "
+        f"the dry run's from the phase's start): "
+        f"{({k: round(v, 1) for k, v in secs.items()})} on {smi}")
+    log(f"phase tp_spatial: {took:.1f} s on {smi}")
+    check(took < TP_PHASE_S, f"phase tp_spatial took {took:.1f} s")
+
+
 def main() -> int:
     # the port first: without the repository around it, fail before any output
     from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
@@ -3502,6 +3689,7 @@ def main() -> int:
         phase_export_hyper(dev, smi, root, yolo_run, rekt_pt)
         log(f"phase export_hyper: {time.perf_counter() - t0:.1f} s on {smi}")
     phase_multi_device(dev, smi, rows, frames_np, thresh, thresh_q, bundles)
+    phase_tp_spatial(dev, smi)
     check("jax" not in sys.modules, "jax was imported")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -13,6 +13,12 @@ graph. Frames, activations and head outputs are NHWC; each convolution
 views its input as NCHW (channels_last). :func:`load_darknet_weights` and
 :func:`save_darknet_weights` read and write such trees as Darknet
 ``.weights`` files (local paths).
+
+Several devices (``parallel/mesh.py``): a :class:`TrainDarknet` built on
+:func:`~..parallel.mesh.shard_channels`' part of a tree under a ``model``
+sub-mesh holds only its block of each split convolution's out-channels
+(tensor parallel), and ``detections(x, spatial=model mesh)`` runs the eval
+forward on this rank's frame rows with halo exchanges (spatial).
 """
 
 from __future__ import annotations
@@ -39,6 +45,12 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import (
     _BN,
     BN_EPS,
     conv2d,
+)
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import (
+    copy_to_model,
+    gather_blocks,
+    halo_exchange,
+    spatial_rows,
 )
 
 
@@ -169,6 +181,54 @@ def _maxpool(x, size: int, stride: int):
     return F.max_pool2d(x, size, stride, (size - 1) // 2)
 
 
+def _maxpool_nhwc(x, size: int, stride: int):
+    return _maxpool(x.permute(0, 3, 1, 2), size, stride).permute(0, 2, 3, 1)
+
+
+def _halo_rows(size: int, stride: int, pad: int) -> tuple:
+    """Rows a window of ``size`` at ``stride`` with ``pad`` rows of padding
+    above reads from the previous block and the next one, when each block
+    of input rows is a multiple of the stride."""
+    return pad, max(size - stride - pad, 0)
+
+
+def _spatial_maxpool(x, size: int, stride: int, mesh):
+    """:func:`_maxpool` on this rank's rows of NHWC ``x``: the reference's
+    k=2, s=1 pool takes the next rank's first row where :func:`_maxpool`
+    pads a zero row (the last rank pads it); any other pool takes its
+    halo rows, −inf at the frame's edges as ``max_pool2d`` pads."""
+    if size == 2 and stride == 1:
+        x = halo_exchange(x, mesh, 1, 0, 1, 0.0).permute(0, 3, 1, 2)
+        y = F.max_pool2d(F.pad(x, (0, 1)), 2, 1)
+    else:
+        pad = (size - 1) // 2
+        x = halo_exchange(x, mesh, 1, *_halo_rows(size, stride, pad), float("-inf"))
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), size, stride, (0, pad))
+    return y.permute(0, 2, 3, 1)
+
+
+def block_strides(spec: NetworkSpec) -> list:
+    """Each block's output stride: frame rows a row of its output."""
+    strides = []
+    for b in spec.blocks:
+        s = strides[-1] if strides else 1
+        if isinstance(b, (ConvBlock, MaxPoolBlock)):
+            s *= b.stride
+        elif isinstance(b, UpsampleBlock):
+            s //= b.stride
+        elif isinstance(b, RouteBlock):
+            s = strides[b.layers[0]]
+        strides.append(s)
+    return strides
+
+
+def coarsest_stride(spec: NetworkSpec) -> int:
+    """The largest block stride: 32 for YOLOv3, whose coarsest head it is.
+    The spatial split hands out frame rows in whole rows of it, so that
+    every level splits cleanly."""
+    return max(block_strides(spec))
+
+
 @functools.cache
 def _slope_in(slope: float, dtype) -> float:
     """``slope`` rounded to ``dtype`` (bf16: 0.1 → 0.10009765625)."""
@@ -286,10 +346,10 @@ class YoloHeads(nn.Module):
         x, _ = self._walk(x, stop + 1)
         return x
 
-    def _walk(self, x, end: int, conv=None):
+    def _walk(self, x, end: int, conv=None, pool=_maxpool_nhwc):
         """Blocks up to ``end`` (exclusive) → (last activation, pre-yolo
         maps met so far). ``conv(i, x)`` runs conv block ``i`` (default
-        :meth:`_conv`)."""
+        :meth:`_conv`), ``pool(x, size, stride)`` a maxpool block."""
         conv = conv or self._conv
         slope = self.spec.net.leaky_slope
         x, layer_outputs = self._enter(x)
@@ -307,8 +367,7 @@ class YoloHeads(nn.Module):
                 elif b.activation == "ReLU":
                     x = F.relu(x)
             elif isinstance(b, MaxPoolBlock):
-                x = _maxpool(x.permute(0, 3, 1, 2), b.size,
-                             b.stride).permute(0, 2, 3, 1)
+                x = pool(x, b.size, b.stride)
             elif isinstance(b, UpsampleBlock):
                 x = _upsample(x, b.stride)
             elif isinstance(b, RouteBlock):
@@ -320,14 +379,15 @@ class YoloHeads(nn.Module):
             layer_outputs.append(x)
         return x, outputs
 
-    def detections(self, x, with_classes: bool = True):
+    def detections(self, x, with_classes: bool = True, **kw):
         """Full eval forward: per-head decodes concatenated along the box
-        axis, (B, ΣA·h·w, 5+C) (or 5 with ``with_classes=False``), f32."""
+        axis, (B, ΣA·h·w, 5+C) (or 5 with ``with_classes=False``), f32.
+        ``kw`` goes to :meth:`forward_features`."""
         anchors = self._anchor_tensors(x.device)
         return torch.cat([
             decode_head(h, anc, self.spec.net.height,
                         self.spec.net.num_classes, with_classes=with_classes)
-            for h, anc in zip(self.forward_features(x), anchors)
+            for h, anc in zip(self.forward_features(x, **kw), anchors)
         ], dim=1)
 
     def forward(self, x):
@@ -358,26 +418,56 @@ class Darknet(YoloHeads):
 class _TrainConv(nn.Module):
     """A conv block's f32 master ``weight`` (OIHW) and either a batch norm
     (``bn``: its ``weight``/``bias`` parameters and running stats) or the
-    linear pre-yolo conv's ``bias``."""
+    linear pre-yolo conv's ``bias``.
 
-    def __init__(self, p, s, stride: int, padding: int):
+    Given a block of ``filters`` out-channels (a ``model_mesh`` position's
+    part of a tree :func:`~..parallel.mesh.shard_channels` split), it holds
+    that block only, its parameters marked ``model_split``: the input goes
+    through :func:`copy_to_model`, and the block's output, normalised, is
+    gathered over the ``model`` mesh into all ``filters`` channels."""
+
+    def __init__(self, p, s, stride: int, padding: int, filters: int,
+                 model_mesh=None):
         super().__init__()
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(p["w"].detach().clone().float())
         if "bn" in p:
             self.bn = _BN(p["bn"], s)
+            leaves = [p["bn"]["scale"], p["bn"]["bias"], s["mean"], s["var"]]
         else:
             self.bias = nn.Parameter(p["b"].detach().clone().float())
+            leaves = [p["b"]]
+        out = self.weight.shape[0]
+        if any(v.shape[-1] != out for v in leaves):
+            raise ValueError("a conv block's leaves split together: weight "
+                             f"{tuple(self.weight.shape)}, vectors "
+                             f"{[tuple(v.shape) for v in leaves]}")
+        self.split = None
+        if out != filters:
+            if model_mesh is None or out * model_mesh.size != filters:
+                raise ValueError(f"{out} of {filters} out-channels, model mesh "
+                                 f"{model_mesh}")
+            self.split = model_mesh
+            for t in self.parameters():
+                t.model_split = True
 
-    def forward(self, x, dtype, train: bool, mesh=None):
-        """NCHW ``x`` → the conv (parameters cast to ``dtype``), then the
-        batch norm (batch statistics, the global batch's under a process
-        ``mesh``, and a running-stat update in training) or ``+ b``, each
-        rounded to ``dtype`` as the JAX package rounds."""
-        y = F.conv2d(x, self.weight.to(dtype), None, self.stride, self.padding)
+    def forward(self, x, dtype, train: bool, mesh=None, padding=None):
+        """NCHW ``x`` → the conv (parameters cast to ``dtype``; ``padding``
+        overrides the block's), then the batch norm (batch statistics, the
+        global batch's under a process ``mesh``, and a running-stat update
+        in training) or ``+ b``, each rounded to ``dtype`` as the JAX
+        package rounds."""
+        if self.split is not None:
+            x = copy_to_model(x, self.split)
+        y = F.conv2d(x, self.weight.to(dtype), None, self.stride,
+                     self.padding if padding is None else padding)
         if hasattr(self, "bn"):
-            return self.bn(y, dtype, train, mesh)
-        return y + self.bias.to(dtype)[None, :, None, None]
+            y = self.bn(y, dtype, train, mesh)
+        else:
+            y = y + self.bias.to(dtype)[None, :, None, None]
+        if self.split is not None:
+            y = gather_blocks(y, self.split, 1)
+        return y
 
 
 class TrainDarknet(YoloHeads):
@@ -392,15 +482,27 @@ class TrainDarknet(YoloHeads):
     statistics in f32 and updates the running stats in place.
     ``detections(x)`` is the eval forward in f32 on the running stats,
     unfolded (folding moves the rounding). :meth:`folded` gives the tree
-    the serving :class:`Darknet` takes."""
+    the serving :class:`Darknet` takes.
+
+    Tensor parallel: under a ``model_mesh`` (a 2-D mesh's ``model``
+    sub-mesh) ``params`` and ``state`` are this position's
+    :func:`~..parallel.mesh.shard_channels` part, and each split block
+    holds its out-channels only (:class:`_TrainConv`); the rest runs whole
+    on every rank with no collective. :meth:`trees` then gives the parts,
+    which :func:`~..parallel.mesh.gather_channels` joins.
+
+    Spatial: ``forward_features(x, spatial=model mesh)`` (and so
+    ``detections``) runs the eval forward on this rank's frame rows (the
+    part :func:`~..parallel.mesh.shard_spatial` gives it), with whole
+    weights."""
 
     frame_dtype = torch.float32
 
-    def __init__(self, spec: NetworkSpec, params, state):
+    def __init__(self, spec: NetworkSpec, params, state, model_mesh=None):
         super().__init__(spec)
         self.convs = nn.ModuleDict({
             str(i): _TrainConv(params[str(i)], state.get(str(i)), b.stride,
-                               (b.size - 1) // 2)
+                               (b.size - 1) // 2, b.filters, model_mesh)
             for i, b in enumerate(spec.blocks) if isinstance(b, ConvBlock)})
 
     def _conv(self, i: int, x, train: bool = False, dtype=torch.float32,
@@ -409,12 +511,45 @@ class TrainDarknet(YoloHeads):
         return y.permute(0, 2, 3, 1)
 
     def forward_features(self, x, train: bool = False, dtype=torch.float32,
-                         mesh=None):
+                         mesh=None, spatial=None):
         """x (B, H, W, C) → the raw pre-yolo maps in ``dtype``, one per
         yolo head, each NHWC (B, h, w, A·(5+C)). Under a process ``mesh``
-        the training batch norms take the global batch's statistics."""
+        the training batch norms take the global batch's statistics.
+
+        ``spatial``: a ``model`` mesh over which the frame rows are split
+        (:func:`~..parallel.mesh.spatial_rows`); ``x`` is this rank's rows.
+        Each conv and pool takes its halo rows from its neighbours, the
+        rest stays local, and the maps are gathered on H in rank order, so
+        every rank returns the whole maps of its batch rows."""
+        if spatial is not None:
+            return self._spatial_features(x, dtype, spatial, train)
         conv = functools.partial(self._conv, train=train, dtype=dtype, mesh=mesh)
         return self._walk(x.to(dtype), len(self.spec.blocks), conv)[1]
+
+    def _spatial_features(self, x, dtype, spatial, train: bool):
+        if train or any(c.split is not None for c in self.convs.values()):
+            raise ValueError("the spatial forward is the eval forward of a "
+                             "model with whole weights")
+        rows = spatial_rows(self.spec.net.height, coarsest_stride(self.spec),
+                            spatial.size)
+        mine = rows[spatial.rank]
+        if x.shape[1] != mine.stop - mine.start:
+            raise ValueError(f"rank {spatial.rank} holds frame rows {mine}, got "
+                             f"{x.shape[1]} rows")
+
+        def conv(i, h):
+            b = self.spec.blocks[i]
+            pad = (b.size - 1) // 2
+            h = halo_exchange(h, spatial, 1, *_halo_rows(b.size, b.stride, pad))
+            y = self.convs[str(i)](h.permute(0, 3, 1, 2), dtype, False,
+                                   padding=(0, pad))
+            return y.permute(0, 2, 3, 1)
+
+        pool = functools.partial(_spatial_maxpool, mesh=spatial)
+        heads = self._walk(x.to(dtype), len(self.spec.blocks), conv, pool)[1]
+        return [gather_blocks(h, spatial, 1, [(r.stop - r.start) * h.shape[1]
+                                              // x.shape[1] for r in rows])
+                for h in heads]
 
     def trees(self):
         """The ``(params, state)`` trees of the current values (detached

@@ -20,13 +20,25 @@ device. One ``OK`` line a surface:
 - ``TwoStagePP`` (stage A on the first device, stage B on the last),
   equal to the fused pipeline.
 
-Left out, as the port has no such surface yet: the packed-stem step, the
-tensor-parallel × DP step and the spatially sharded forward (ROADMAP).
+When N is even and at least 4, as in the JAX package's dry run, two more
+on a 2-D ``(N/2 data, 2 model)`` process mesh (``launch(mesh_shape=)``;
+the data-parallel jobs then run in the same launch, on the world's 1-D
+mesh):
 
-:func:`run_jobs` is the DP step runner the dry run, ``chip_smoke.py`` and
+- the tensor-parallel × DP YOLO step (SGD with momentum): the loss
+  finite, ``convs["0"].weight`` still a block of out-channels after the
+  update, the loss and the joined parameters the one-process step's;
+- the spatially sharded detect forward (H over ``model``, halo
+  exchanges), equal to one process.
+
+Not run yet, as the port has no such surface: the packed-stem step
+(ROADMAP Queue 1 item 10).
+
+:func:`run_jobs` is the step runner the dry run, ``chip_smoke.py`` and
 the tests share: the same seeded jobs run under a process mesh (one rank's
-rows) or without one (the whole batch), and the results come back as
-numpy in the JAX package's tree layout.
+rows; on a 2-D mesh one rank's rows and block of channels or frame rows)
+or without one (the whole batch), and the results come back as numpy in
+the JAX package's tree layout.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mit_driverless_cv_traininginfra_tpu_torch import convert
 from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import load_network_spec
@@ -54,10 +67,16 @@ from mit_driverless_cv_traininginfra_tpu_torch.ops.cuda_kernels import (
 from mit_driverless_cv_traininginfra_tpu_torch.ops.metrics import evaluate_image_batch
 from mit_driverless_cv_traininginfra_tpu_torch.parallel.launch import launch, rank_devices
 from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import (
+    Mesh2D,
     all_gather,
+    gather_channels,
     make_mesh,
+    process_mesh,
     replicate,
     shard_batch,
+    shard_channels,
+    shard_spatial,
+    spatial_sharding,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.train import optim, steps
 
@@ -70,12 +89,17 @@ TINY_CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 # ---------------------------------------------------------------------------
 
 
-def _model(job, dev):
+def _model(job, dev, mesh=None):
+    """The job's model on ``dev``; a tensor-parallel ``TrainDarknet`` on
+    this position's part of the trees under a :class:`Mesh2D`."""
     params, state = job["trees"]
+    if isinstance(mesh, Mesh2D):
+        params, state = shard_channels(mesh, params), shard_channels(mesh, state)
     p, s = convert.from_jax(params, dev), convert.from_jax(state, dev)
     if job["family"] == "rektnet":
         return rektnet.KeypointNet(p, s).to(dev)
-    return darknet.TrainDarknet(job["spec"], p, s).to(dev)
+    return darknet.TrainDarknet(job["spec"], p, s,
+                                model_mesh=getattr(mesh, "model", None)).to(dev)
 
 
 def _tensor(a, dev):
@@ -97,35 +121,64 @@ def run_job(mesh, job: dict, dev) -> dict:
     ``"rektnet"`` (``rektnet_train_step``) from ``job["trees"]`` (JAX-layout
     numpy ``(params, state)``) on ``job["batch"]`` (the global batch as
     numpy; None entries pass), with ``job["optimizer"]`` at ``job["lr"]``
-    (no momentum) and ``job["step_kw"]``; ``job["cudnn"] = False`` runs the
+    (``job["momentum"]``, default none; ``job["grad_clip"]``, default off)
+    and ``job["step_kw"]``; ``job["cudnn"] = False`` runs the
     convolutions without cuDNN (its algorithm picks depend on the batch
     size, so a rank's half batch may sum in another algorithm). Under a
     process ``mesh`` this rank takes its rows, and the trees must end
-    bit-equal on every rank.
+    bit-equal on every rank; under a :class:`Mesh2D` the YOLO model is
+    tensor-parallel over ``model``, its blocks must end bit-equal across
+    ``data`` and its whole leaves on every rank.
 
     Returns ``{"losses": [one flat array a step: the step's returned
     values], "trees": {step: (params, state)}, "ms": [a step's wall time,
     the device synchronised], "launches": K2's forward and backward
-    wrapper counts over the steps}``, the trees for the steps in
-    ``job["keep"]`` (default the last), JAX-layout numpy."""
-    model = _model(job, dev)
+    wrapper counts over the steps, "mib": parameter and optimizer-state
+    MiB on this rank}``, the trees for the steps in ``job["keep"]``
+    (default the last), whole, JAX-layout numpy. Under a :class:`Mesh2D`
+    also ``"parts"``: every rank's own trees after the last step, in rank
+    order; ``"optimizer_shapes"``: each parameter's shape beside its
+    optimizer state's; ``"collectives"``: this rank's model-axis
+    collectives over the steps."""
+    model = _model(job, dev, mesh)
     opt = optim.make_optimizer(model.parameters(), job.get("optimizer", "SGD"),
-                               lr=job["lr"], momentum=0.0)
+                               lr=job["lr"], momentum=job.get("momentum", 0.0),
+                               grad_clip=job.get("grad_clip", 0.0))
     batch = _local(mesh, job["batch"], dev)
     kw = dict(job.get("step_kw", {}), mesh=mesh)
     keep = set(job.get("keep", (job["steps"],)))
     out = {"losses": [], "trees": {}, "ms": []}
     fused_softargmax.launches = softargmax_bwd.launches = 0
+    tp = isinstance(mesh, Mesh2D)
+    if tp:
+        mesh.model.collectives.clear()
     with torch.backends.cudnn.flags(enabled=job.get("cudnn", True)):
-        _steps(model, opt, batch, job, kw, dev, keep, out)
+        _steps(model, opt, batch, job, kw, dev, keep, out, mesh)
     out["launches"] = {"softargmax": fused_softargmax.launches,
                        "softargmax_bwd": softargmax_bwd.launches}
+    out["mib"] = sum(t.numel() * t.element_size() for t in _held(model, opt)) / 2**20
+    if tp:
+        out["collectives"] = list(mesh.model.collectives)
+        out["optimizer_shapes"] = {
+            name: (tuple(p.shape), [tuple(v.shape) for v in opt.state[p].values()
+                                    if torch.is_tensor(v) and v.ndim])
+            for name, p in model.named_parameters()}
+        p, s = model.trees()
+        out["parts"] = [None] * mesh.size
+        dist.all_gather_object(out["parts"], (convert.to_jax(p), convert.to_jax(s)))
     if mesh is not None:
         _check_equal_on_ranks(model, mesh)
     return out
 
 
-def _steps(model, opt, batch, job, kw, dev, keep, out) -> None:
+def _held(model, opt) -> list:
+    """The tensors a training rank holds for its model: parameters, buffers
+    and optimizer state."""
+    state = [v for st in opt.state.values() for v in st.values() if torch.is_tensor(v)]
+    return list(model.parameters()) + list(model.buffers()) + state
+
+
+def _steps(model, opt, batch, job, kw, dev, keep, out, mesh) -> None:
     for t in range(job["steps"]):
         t0 = time.perf_counter()
         if job["family"] == "rektnet":
@@ -140,19 +193,34 @@ def _steps(model, opt, batch, job, kw, dev, keep, out) -> None:
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["losses"].append(np.concatenate([x.reshape(-1).cpu().numpy() for x in got]))
         if t + 1 in keep:
-            p, s = model.trees()
-            out["trees"][t + 1] = (convert.to_jax(p), convert.to_jax(s))
+            trees = tuple(convert.to_jax(x) for x in model.trees())
+            if isinstance(mesh, Mesh2D):
+                trees = tuple(gather_channels(mesh, x, like)
+                              for x, like in zip(trees, job["trees"]))
+            out["trees"][t + 1] = trees
 
 
 def _check_equal_on_ranks(model, mesh) -> None:
-    """Rank 0's parameters and buffers, broadcast, against this rank's."""
-    mine = torch.cat([t.detach().reshape(-1).float()
-                      for t in list(model.parameters()) + list(model.buffers())])
-    ref = mine.clone()
-    replicate(mesh, [ref])
-    if not torch.equal(ref, mine):
-        raise RuntimeError(f"rank {mesh.rank}: parameters differ from rank 0's "
-                           f"(max |Δ| {float((ref - mine).abs().max())})")
+    """Rank 0's parameters and buffers, broadcast, against this rank's; on
+    a :class:`Mesh2D` all of them over ``data`` and the whole (not split)
+    ones over ``model``."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    groups = [(mesh, tensors)]
+    if isinstance(mesh, Mesh2D):
+        split = {id(t) for c in model.modules()
+                 if getattr(c, "split", None) is not None
+                 for t in list(c.parameters()) + list(c.buffers())}
+        groups = [(mesh.data, tensors),
+                  (mesh.model, [t for t in tensors if id(t) not in split])]
+    for group, ts in groups:
+        if not ts:
+            continue
+        mine = torch.cat([t.detach().reshape(-1).float() for t in ts])
+        ref = mine.clone()
+        replicate(group, [ref])
+        if not torch.equal(ref, mine):
+            raise RuntimeError(f"rank {mesh.rank}: parameters differ from rank 0's "
+                               f"of {group} (max |Δ| {float((ref - mine).abs().max())})")
 
 
 @torch.no_grad()
@@ -180,12 +248,77 @@ def map_job(mesh, job: dict, dev) -> dict:
     return out
 
 
+def spatial_job(mesh, job: dict, dev) -> dict:
+    """The eval forward (``detections``) of a ``TrainDarknet`` on
+    ``job["trees"]`` over ``job["batch"]`` (images,): under a
+    :class:`Mesh2D` on this rank's batch rows and frame rows
+    (``shard_spatial``, H over ``model``), without one on the whole batch;
+    ``job["grad"]`` also takes the gradient of the detections' sum with
+    respect to the images, ``job["cudnn"]`` as in :func:`run_job`.
+
+    Returns ``{"det": (B, N, 5+C), "grad": (B, H, W, C) or None, "ms": the
+    forward's wall time, the device synchronised}`` over the whole batch,
+    joined from every rank's part, as numpy; under a mesh also
+    ``"collectives"``: this rank's model-axis collectives, and ``"rows"``:
+    each model position's frame rows."""
+    params, state = job["trees"]
+    model = darknet.TrainDarknet(job["spec"], convert.from_jax(params, dev),
+                                 convert.from_jax(state, dev)).to(dev)
+    imgs = np.asarray(job["batch"][0])
+    stride = darknet.coarsest_stride(job["spec"])
+    kw, out = {}, {}
+    if mesh is None:
+        x = torch.from_numpy(imgs).to(dev)
+    else:
+        x = shard_spatial(mesh, imgs, stride)[0]
+        kw = dict(spatial=mesh.model)
+        mesh.model.collectives.clear()
+    x = x.clone().requires_grad_(bool(job.get("grad")))
+    with torch.backends.cudnn.flags(enabled=job.get("cudnn", True)), \
+            torch.set_grad_enabled(bool(job.get("grad"))):
+        t0 = time.perf_counter()
+        det = model.detections(x, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        if job.get("grad"):
+            det.sum().backward()
+    grad = None if x.grad is None else x.grad.cpu().numpy()
+    det = det.detach().cpu().numpy()
+    if mesh is None:
+        return dict(out, det=det, grad=grad)
+    where = spatial_sharding(mesh, imgs.shape, stride)
+    nm = mesh.model.size
+    parts = [None] * mesh.size
+    dist.all_gather_object(parts, (det, grad))
+    # every model position of a data row holds that row's whole detections
+    if any(not np.array_equal(parts[r][0], parts[r - r % nm][0]) for r in range(mesh.size)):
+        raise RuntimeError("the model ranks' detections differ")
+    out["det"] = np.concatenate([d for d, _ in parts[::nm]])
+    out["grad"] = None
+    if grad is not None:
+        out["grad"] = np.zeros(imgs.shape, np.float32)
+        for (_, b, rows), (_, g) in zip(where, parts):
+            out["grad"][b, rows] = g
+    out["collectives"] = list(mesh.model.collectives)
+    out["rows"] = [rows for _, _, rows in where[:nm]]
+    return out
+
+
 def run_jobs(mesh, jobs, device=None) -> list:
-    """Each job (:func:`run_job`, or :func:`map_job` for family ``"map"``)
-    under ``mesh`` on its device, or without one on ``device``."""
+    """Each job (:func:`run_job`, :func:`map_job` for family ``"map"``,
+    :func:`spatial_job` for family ``"spatial"``) under ``mesh`` on its
+    device, or without one on ``device``."""
     dev = resolve_device(device) if mesh is None else mesh.device
-    return [(map_job if job["family"] == "map" else run_job)(mesh, job, dev)
-            for job in jobs]
+    runner = {"map": map_job, "spatial": spatial_job}
+    return [runner.get(job["family"], run_job)(mesh, job, dev) for job in jobs]
+
+
+def run_dp_and_2d(mesh: Mesh2D, dp: list, two_d: list) -> tuple:
+    """:func:`run_jobs` of ``dp`` on the world's 1-D mesh (the ranks of
+    ``mesh`` in their order) and of ``two_d`` on ``mesh`` itself, in one
+    launch: a launch spends seconds starting its ranks."""
+    return run_jobs(process_mesh(mesh.devices), dp), run_jobs(mesh, two_d)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +371,54 @@ def dp_jobs(spec, B: int, seed: int = 0) -> list:
     ]
 
 
+def mesh_2d_jobs(spec, B: int, seed: int = 1) -> list:
+    """The dry run's 2-D mesh jobs on ``spec`` at global batch ``B``: one
+    tensor-parallel × DP YOLO step (SGD, momentum 0.9, lr 1e-2, as the JAX
+    tests take it) and the spatial forward, from one seeded tree."""
+    rng = np.random.default_rng(seed)
+    trees = convert.init_darknet_np(spec, rng)
+    imgs = rng.uniform(0, 1, (B, spec.net.height, spec.net.width, 3)).astype(np.float32)
+    return [dict(family="yolo", spec=spec, trees=trees, batch=(imgs, yolo_targets(rng, B)),
+                 lr=1e-2, momentum=0.9, steps=1),
+            dict(family="spatial", spec=spec, trees=trees, batch=(imgs,))]
+
+
+def trees_close(a, b, rtol: float, atol: float) -> bool:
+    """Two trees (dicts and tuples) of arrays equal within the tolerances,
+    leaf by leaf."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_close(a[k], b[k], rtol, atol) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(trees_close(x, y, rtol, atol) for x, y in zip(a, b))
+    return np.allclose(a, b, rtol=rtol, atol=atol)
+
+
+def check_mesh_2d(tag: str, spec, devices, jobs: list, got: list) -> None:
+    """The TP × DP step and the spatial forward (``jobs``, ``got`` their
+    results on an N/2 × 2 mesh), each against this process on the whole
+    batch; an ``OK`` line each."""
+    n = len(devices)
+    tp, sp = got
+    tp1, sp1 = run_jobs(None, jobs, devices[0])
+    loss, filters = tp["losses"][0], spec.blocks[0].filters
+    w0 = tp["parts"][0][0]["0"]["w"]
+    if not (np.isfinite(loss).all() and 2 * w0.shape[-1] == filters):
+        raise RuntimeError(f"{tag}: TP step loss {loss}, convs['0'] holds "
+                           f"{w0.shape[-1]} of {filters} out-channels")
+    if not (np.allclose(loss, tp1["losses"][0], rtol=1e-4, atol=1e-6)
+            and trees_close(tp["trees"][1], tp1["trees"][1], 2e-4, 2e-6)):
+        raise RuntimeError(f"{tag}: TP step (loss {loss}) differs from one "
+                           f"device's (loss {tp1['losses'][0]})")
+    print(f"{tag}: yolo_train_step[tp x dp, mesh {n // 2}x2] loss={loss[0]:.4f} "
+          f"convs['0'] holds {w0.shape[-1]} of {filters} out-channels a rank "
+          "= one device's OK")
+    if not np.allclose(sp["det"], sp1["det"], rtol=1e-5, atol=1e-5):
+        raise RuntimeError(f"{tag}: the spatial forward differs from one device's "
+                           f"by {float(np.abs(sp['det'] - sp1['det']).max())}")
+    print(f"{tag}: spatial-sharded detections (H over 'model', frame rows "
+          f"{[(r.start, r.stop) for r in sp['rows']]}) match one device OK")
+
+
 def serving_models(spec, frames: np.ndarray, dev, seed: int = 2):
     """bf16 and int8 serving models of ``spec`` (heads sliced to one class)
     and a narrow RektNet from one seeded init: ``{"bf16": (yolo, rekt),
@@ -285,7 +466,13 @@ def main(argv=None) -> int:
 
     B = 2 * n
     jobs = dp_jobs(spec, B)
-    dp = launch(run_jobs, devices, args=(jobs,))
+    two_d = n % 2 == 0 and n >= 4
+    if two_d:
+        jobs_2d = mesh_2d_jobs(spec, B)
+        dp, got_2d = launch(run_dp_and_2d, devices, args=(jobs, jobs_2d),
+                            mesh_shape=(n // 2, 2))
+    else:
+        dp = launch(run_jobs, devices, args=(jobs,))
     one = run_jobs(None, jobs, devices[0])
     for name, j, a, b in zip(("yolo_train_step", "yolo_train_step_device_aug"),
                              jobs[:2], dp[:2], one[:2]):
@@ -307,6 +494,11 @@ def main(argv=None) -> int:
         raise RuntimeError(f"{tag}: rektnet_train_step (total, loc, geo) {a} != {b}")
     print(f"{tag}: rektnet_train_step total={a[0]:.4f} loc={a[1]:.4f} "
           f"geo={a[2]:.4f} = one device's OK")
+    if two_d:
+        check_mesh_2d(tag, spec, devices, jobs_2d, got_2d)
+    else:
+        print(f"{tag}: not run (a 2-D mesh N/2 x 2 needs N even and at least 4): "
+              "tensor-parallel x DP, spatial sharding")
 
     rng = np.random.default_rng(7)
     frames = rng.uniform(0, 1, (B, 64, 64, 3)).astype(np.float32)
@@ -334,8 +526,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{tag}: TwoStagePP differs from the fused pipeline")
     print(f"{tag}: TwoStagePP (detect on {devices[0]}, keypoints on {devices[-1]}, "
           f"{len(micro)} microbatches) matches fused OK")
-    print(f"{tag}: not run (no such surface in the port yet): packed_stem, "
-          "tensor-parallel x DP, spatial sharding")
+    print(f"{tag}: not run (no such surface in the port yet): packed_stem")
     return 0
 
 

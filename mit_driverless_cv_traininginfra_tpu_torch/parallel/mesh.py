@@ -29,10 +29,25 @@ gathered there, copied back. That is a property of ``gloo``, used where two
 ranks share one card (NCCL refuses two ranks on one GPU); the ``nccl`` path
 never stages.
 
-Not ported yet: the tensor-parallel and spatial placements
-(``shard_channels``, ``make_mesh_2d``, ``shard_spatial``), which in
-PyTorch are model code (channel-split convolutions with gathers, halo
-exchanges); ROADMAP.md lists them as the next slice.
+The JAX package's two more axes run on a 2-D ``(data, model)`` process
+mesh (:func:`make_mesh_2d`, :class:`Mesh2D`: a ``data`` and a ``model``
+sub-mesh in each rank). Under GSPMD they are placements; in PyTorch they
+are model code, and their pieces live here:
+
+- **tensor parallel**: :func:`shard_channels` cuts this rank's block of
+  out-channels from a JAX-layout tree by JAX's rule (:func:`channel_split`),
+  :func:`gather_channels` puts the whole tree back. A split convolution
+  (``models/darknet.py``) runs :func:`copy_to_model` on its input (identity
+  forward, Σ over ``model`` backward), its weight block, and
+  :func:`gather_blocks` on its output (all-gather forward, a slice
+  backward); batch statistics and gradients are summed over ``data``;
+- **spatial**: :func:`shard_spatial` gives each rank whole rows of the
+  network's coarsest grid (:func:`spatial_rows`), each convolution takes
+  its neighbours' boundary rows (:func:`halo_exchange`), and the pre-yolo
+  maps are gathered on H (:func:`gather_blocks`, unequal blocks).
+
+Each model-axis collective notes ``(kind, shape, bytes)`` in its mesh's
+``collectives`` list, where a test or a runner reads what moved.
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ import torch.distributed as dist
 from mit_driverless_cv_traininginfra_tpu_torch.device import resolve_device
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 class Mesh:
@@ -62,6 +78,7 @@ class Mesh:
         self.rank = rank
         self.stage_through_host = (group is not None
                                    and dist.get_backend(group) == "gloo")
+        self.collectives: list = []  # (kind, shape, bytes) of model-axis ops
 
     @property
     def size(self) -> int:
@@ -119,6 +136,189 @@ def process_mesh(devices: Sequence, group=None) -> Mesh:
                 rank=dist.get_rank(group))
 
 
+class Mesh2D:
+    """A ``(data, model)`` mesh of ``n_data·n_model`` positions laid out
+    data-major, as the JAX package reshapes its device list: position ``r =
+    d·n_model + m`` drives ``devices[r]``. This process is position
+    ``rank``; ``data`` is the 1-D :class:`Mesh` along its column (the
+    positions holding other rows of the batch and the same blocks of
+    channels or frame rows), ``model`` the one along its row (the same
+    batch rows, the other blocks). On a process mesh each carries its own
+    process group (``groups``: this rank's data group and model group); on
+    a device mesh neither does, and ``rank`` only picks the position."""
+
+    def __init__(self, n_data: int, n_model: int, devices: Sequence, rank: int = 0,
+                 groups=(None, None)):
+        if n_data < 1 or n_model < 1:
+            raise ValueError(f"a mesh needs n_data, n_model ≥ 1, got {n_data}x{n_model}")
+        self.devices = tuple(torch.device(d) for d in devices)
+        if len(self.devices) != n_data * n_model:
+            raise ValueError(f"mesh {n_data}x{n_model} takes {n_data * n_model} "
+                             f"devices, got {len(self.devices)}")
+        self.shape = {DATA_AXIS: n_data, MODEL_AXIS: n_model}
+        self.rank = rank
+        d, m = divmod(rank, n_model)
+        self.data = Mesh(self.devices[m::n_model], group=groups[0], rank=d)
+        self.model = Mesh(self.devices[d * n_model:(d + 1) * n_model],
+                          group=groups[1], rank=m)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[self.rank]
+
+
+def make_mesh_2d(n_data: int, n_model: int, devices=None) -> Mesh2D:
+    """A 2-D ``(data, model)`` mesh (the JAX package's ``make_mesh_2d``).
+
+    In an initialised process group it is this rank's process mesh over
+    the whole world (``devices[r]`` rank r's device, one entry a rank):
+    every rank makes every sub-group, the ``data`` groups (one a model
+    position) and then the ``model`` groups (one a data position), in that
+    fixed order, as ``dist.new_group`` requires. Otherwise it is a device
+    mesh over the first ``n_data·n_model`` of ``devices`` (default: every
+    CUDA device). Raises where fewer devices exist than the mesh takes, as
+    JAX's does, and where a process mesh would leave ranks out of it."""
+    need = n_data * n_model
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if devices is None or len(devices) != world:
+            raise ValueError(f"make_mesh_2d: give one device a rank ({world} ranks)")
+        if world != need:
+            raise ValueError(f"mesh {n_data}x{n_model} needs {need} devices, "
+                             f"the process group has {world} ranks")
+        data_groups = [dist.new_group([d * n_model + m for d in range(n_data)])
+                       for m in range(n_model)]
+        model_groups = [dist.new_group([d * n_model + m for m in range(n_model)])
+                        for d in range(n_data)]
+        rank = dist.get_rank()
+        d, m = divmod(rank, n_model)
+        return Mesh2D(n_data, n_model, [resolve_device(x) for x in devices], rank,
+                      (data_groups[m], model_groups[d]))
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    if len(devices) < need:
+        raise ValueError(f"mesh {n_data}x{n_model} needs {need} devices, "
+                         f"have {len(devices)}")
+    return Mesh2D(n_data, n_model, [resolve_device(x) for x in devices[:need]])
+
+
+def data_axis(mesh):
+    """The mesh a data-parallel step sums over: a :class:`Mesh2D`'s ``data``
+    sub-mesh, any other mesh (or None) itself."""
+    return mesh.data if isinstance(mesh, Mesh2D) else mesh
+
+
+# Leaf names whose last dim is out-channels in the JAX-layout trees: conv
+# kernels HWIO ("w"), conv bias ("b"), BN scale/bias, BN running mean/var
+# (and the optimizer moments, which mirror the parameter tree). Anything
+# else (anchor tables, step counters) replicates.
+CHANNEL_LEAF_NAMES = frozenset({"w", "b", "scale", "bias", "mean", "var"})
+
+
+def _leaf_name(path) -> Optional[str]:
+    """Innermost key of a tree path (the keys from the root), if any."""
+    return str(path[-1]) if path else None
+
+
+def channel_split(path, shape, mp: int, key_allow=CHANNEL_LEAF_NAMES) -> bool:
+    """JAX's ``shard_channels`` rule for one leaf: split its last dim over
+    ``mp`` model positions only when its innermost key is in ``key_allow``
+    (None: any key), it has a dim, and that dim is at least ``mp`` and a
+    multiple of it."""
+    return ((key_allow is None or _leaf_name(path) in key_allow)
+            and len(shape) >= 1 and shape[-1] >= mp and shape[-1] % mp == 0)
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def shard_channels(mesh: Mesh2D, tree, key_allow=CHANNEL_LEAF_NAMES):
+    """This position's part of a JAX-layout numpy tree (HWIO kernels, so
+    the last dim is out-channels) under tensor parallelism: block ``m`` of
+    ``mp`` (contiguous, as ``P(…, 'model')`` lays the blocks out) of every
+    leaf :func:`channel_split` splits, the whole of every other leaf."""
+    mp, m = mesh.shape[MODEL_AXIS], mesh.model.rank
+
+    def place(path, x):
+        x = np.asarray(x)
+        if not channel_split(path, x.shape, mp, key_allow):
+            return x
+        k = x.shape[-1] // mp
+        return np.ascontiguousarray(x[..., m * k:(m + 1) * k])
+
+    return _map_with_path(place, tree)
+
+
+def gather_channels(mesh: Mesh2D, tree, like, key_allow=CHANNEL_LEAF_NAMES):
+    """The inverse of :func:`shard_channels` on a process mesh: this rank's
+    JAX-layout tree → the whole tree as numpy, each leaf that was split
+    (decided on the whole tree ``like``'s shapes, from which the parts were
+    cut) all-gathered over ``model`` and joined on its last dim in rank
+    order. Every rank of the model row must call it."""
+    mp = mesh.shape[MODEL_AXIS]
+
+    def join(path, x):
+        whole = np.shape(_leaf(like, path))
+        if not channel_split(path, whole, mp, key_allow):
+            return np.asarray(x)
+        t = torch.as_tensor(np.ascontiguousarray(x)).to(mesh.model.device)
+        return _gather_equal(t, mesh.model, t.ndim - 1).cpu().numpy()
+
+    return _map_with_path(join, tree)
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def spatial_rows(height: int, stride: int, n_model: int) -> list:
+    """Frame rows of each of ``n_model`` positions: H split in whole rows of
+    the network's coarsest grid (``stride`` frame rows each), so every
+    level of the network splits cleanly; earlier positions take the extra
+    grid rows. 416 at stride 32 over 2 gives rows 0-224 and 224-416."""
+    if height % stride:
+        raise ValueError(f"height {height} is not a multiple of the coarsest "
+                         f"stride {stride}")
+    coarse = height // stride
+    if n_model > coarse:
+        raise ValueError(f"{n_model} model positions for {coarse} rows of the "
+                         "coarsest grid: each needs at least one")
+    q, r = divmod(coarse, n_model)
+    ends = np.cumsum([0] + [q + (m < r) for m in range(n_model)]) * stride
+    return [slice(int(a), int(b)) for a, b in zip(ends[:-1], ends[1:])]
+
+
+def spatial_sharding(mesh: Mesh2D, shape, stride: int) -> list:
+    """Where the blocks of an NHWC batch of ``shape`` live: one ``(device,
+    batch rows, frame rows)`` a mesh position, data-major; the batch split
+    over ``data`` (:func:`batch_sharding`), H over ``model``
+    (:func:`spatial_rows`)."""
+    nd, nm = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    batch = [rows for _, rows in batch_sharding(mesh.data, shape[0])]
+    rows = spatial_rows(shape[1], stride, nm)
+    return [(mesh.devices[d * nm + m], batch[d], rows[m])
+            for d in range(nd) for m in range(nm)]
+
+
+def shard_spatial(mesh: Mesh2D, images, stride: int) -> list:
+    """The blocks of an NHWC batch (array or tensor) this process holds,
+    each a tensor on its device: on a process mesh one, this rank's batch
+    rows and frame rows; on a device mesh one a position, in mesh order."""
+    placement = spatial_sharding(mesh, images.shape, stride)
+    if mesh.model.group is not None:
+        placement = [placement[mesh.rank]]
+    return [torch.as_tensor(images[b, r]).to(dev) for dev, b, r in placement]
+
+
 def batch_sharding(mesh: Mesh, n: int) -> list:
     """Where the rows of a batch of ``n`` live: one ``(device, slice)`` a
     mesh position, contiguous equal slices. ``n`` must divide
@@ -150,7 +350,9 @@ def shard_batch(mesh: Mesh, tree) -> list:
     """The parts of a batch tree (tensors or arrays, leading axis the
     batch) that this process holds, each as tensors on its device: on a
     process mesh one part, this rank's rows; on a device mesh one part a
-    device, in mesh order."""
+    device, in mesh order. A :class:`Mesh2D` splits the batch over its
+    ``data`` axis (the ranks of one ``model`` row hold the same rows)."""
+    mesh = data_axis(mesh)
     leaves = []
     _tree_map(leaves.append, tree)
     if not leaves:
@@ -168,15 +370,17 @@ def shard_batch(mesh: Mesh, tree) -> list:
 
 def replicate(mesh: Mesh, obj):
     """Equal copies of a module (or a list of tensors). On a process mesh
-    rank 0's values are broadcast into ``obj`` in place, which is returned.
+    its rank 0's values are broadcast into ``obj`` in place, which is
+    returned.
     On a device mesh, one object a device: ``obj`` itself where it is on
     that device already, else a copy moved there."""
     if mesh.group is not None:
         tensors = (list(obj.parameters()) + list(obj.buffers())
                    if isinstance(obj, torch.nn.Module) else list(obj))
+        src = dist.get_global_rank(mesh.group, 0)
         with torch.no_grad():
             for t in tensors:
-                _collective(t, lambda h: dist.broadcast(h, src=0, group=mesh.group),
+                _collective(t, lambda h: dist.broadcast(h, src=src, group=mesh.group),
                             mesh)
         return obj
     return [module_on(obj, dev) for dev in replicated(mesh)]
@@ -341,3 +545,169 @@ def all_sum_grads_(params, mesh: Mesh) -> None:
         g.copy_(flat[offset:offset + n].view_as(g))
         p.grad = g
         offset += n
+
+
+# ---------------------------------------------------------------------------
+# model-axis collectives (tensor-parallel and spatial)
+# ---------------------------------------------------------------------------
+
+
+def _note(mesh: Mesh, kind: str, t: torch.Tensor) -> None:
+    mesh.collectives.append((kind, tuple(t.shape), t.numel() * t.element_size()))
+
+
+def _gather_equal(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The ranks' equal-shaped ``x`` joined on ``dim`` in rank order."""
+    x = x.contiguous()
+    src = x.cpu() if mesh.stage_through_host and x.is_cuda else x
+    parts = [torch.empty_like(src) for _ in range(mesh.size)]
+    dist.all_gather(parts, src, group=mesh.group)
+    return torch.cat(parts, dim).to(x.device)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``model``
+    (each position's block of out-channels sends back its part of the
+    input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _note(ctx.mesh, "all_reduce", grad)
+        return _reduce_(_fresh(grad), dist.ReduceOp.SUM, ctx.mesh), None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """The ranks' blocks joined on ``dim`` in rank order, rank r's block
+    ``sizes[r]`` long there (``gloo``'s all-gather takes equal shapes, so
+    each block is padded to the longest and trimmed after). The backward
+    is this rank's slice of the gradient: every rank computes the same
+    whole output from here on, so the slice is the whole gradient of its
+    block, and no sum is taken."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, sizes):
+        r, n = mesh.rank, max(sizes)
+        if x.shape[dim] != sizes[r]:
+            raise ValueError(f"rank {r}: a block of {x.shape[dim]} on dim {dim}, "
+                             f"{sizes[r]} expected")
+        ctx.mesh, ctx.dim, ctx.start, ctx.n = mesh, dim, sum(sizes[:r]), sizes[r]
+        if n > sizes[r]:
+            pad = list(x.shape)
+            pad[dim] = n - sizes[r]
+            x = torch.cat([x, x.new_zeros(pad)], dim)
+        _note(mesh, "all_gather", x)
+        parts = _gather_equal(x, mesh, dim).split(n, dim)
+        return torch.cat([p.narrow(dim, 0, k) for p, k in zip(parts, sizes)], dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.start, ctx.n), None, None, None
+
+
+def _p2p(mesh: Mesh, sends, recvs) -> None:
+    """Point-to-point transfers within ``mesh``: ``sends`` and ``recvs`` are
+    ``(rank in the mesh, tensor)`` pairs; every transfer is posted, then
+    waited for, and each received tensor written in place."""
+    stage = mesh.stage_through_host
+    ops, back = [], []
+    for op, pairs in ((dist.isend, sends), (dist.irecv, recvs)):
+        for peer, t in pairs:
+            buf = t.contiguous()
+            if stage and buf.is_cuda:
+                buf = buf.cpu()
+            if op is dist.irecv and buf is not t:
+                back.append((t, buf))
+            ops.append(dist.P2POp(op, buf, dist.get_global_rank(mesh.group, peer),
+                                  mesh.group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for t, buf in back:
+        t.copy_(buf)
+
+
+class _Halo(torch.autograd.Function):
+    """``x`` with ``above`` boundary rows of the previous rank on ``dim``
+    before it and ``below`` rows of the next rank after it; the first rank
+    gets ``fill`` rows above, the last ``fill`` rows below (a convolution's
+    own zero padding, or a pool's). The backward sends each halo's
+    gradient back to the rank that owns the rows, where it adds to them."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, above, below, fill):
+        r, last, n = mesh.rank, mesh.size - 1, x.shape[dim]
+        if max(above, below) > n:
+            raise ValueError(f"rank {r}: a halo of {above}/{below} rows from a "
+                             f"block of {n}")
+        ctx.mesh, ctx.dim, ctx.above, ctx.below = mesh, dim, above, below
+
+        def rows(k):
+            shape = list(x.shape)
+            shape[dim] = k
+            return x.new_full(shape, fill)
+
+        top, bottom = rows(above), rows(below)
+        sends, recvs = [], []
+        if r > 0:
+            sends.append((r - 1, x.narrow(dim, 0, below)))
+            recvs.append((r - 1, top))
+        if r < last:
+            sends.append((r + 1, x.narrow(dim, n - above, above)))
+            recvs.append((r + 1, bottom))
+        _exchange(mesh, sends, recvs)
+        return torch.cat([top, x, bottom], dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, dim, above, below = ctx.mesh, ctx.dim, ctx.above, ctx.below
+        r, last = mesh.rank, mesh.size - 1
+        n = grad.shape[dim] - above - below
+        g = grad.narrow(dim, above, n).clone()
+        sends, recvs = [], []
+        if r > 0:
+            sends.append((r - 1, grad.narrow(dim, 0, above)))
+            recvs.append((r - 1, torch.empty_like(g.narrow(dim, 0, below))))
+        if r < last:
+            sends.append((r + 1, grad.narrow(dim, above + n, below)))
+            recvs.append((r + 1, torch.empty_like(g.narrow(dim, n - above, above))))
+        _exchange(mesh, sends, recvs)
+        if r > 0:
+            g.narrow(dim, 0, below).add_(recvs[0][1])
+        if r < last:
+            g.narrow(dim, n - above, above).add_(recvs[-1][1])
+        return g, None, None, None, None, None
+
+
+def _exchange(mesh: Mesh, sends, recvs) -> None:
+    """:func:`_p2p` of the non-empty halos, each send noted."""
+    sends = [(p, t) for p, t in sends if t.numel()]
+    for _, t in sends:
+        _note(mesh, "halo", t)
+    _p2p(mesh, sends, [(p, t) for p, t in recvs if t.numel()])
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` itself, its gradient summed over the ``model`` mesh: the
+    input of a convolution whose out-channels are split over it."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def gather_blocks(x: torch.Tensor, mesh: Mesh, dim: int, sizes=None) -> torch.Tensor:
+    """The ``model`` ranks' blocks of a tensor joined on ``dim`` in rank
+    order (``sizes``: each rank's length there, default all equal to this
+    rank's). Differentiable, the backward a slice."""
+    sizes = list(sizes) if sizes is not None else [x.shape[dim]] * mesh.size
+    return _GatherBlocks.apply(x, mesh, dim, sizes)
+
+
+def halo_exchange(x: torch.Tensor, mesh: Mesh, dim: int, above: int, below: int,
+                  fill: float = 0.0) -> torch.Tensor:
+    """This rank's rows of ``x`` on ``dim`` with ``above`` rows of the
+    previous ``model`` rank and ``below`` of the next around them, ``fill``
+    at the frame's edges. Differentiable."""
+    return _Halo.apply(x, mesh, dim, above, below, fill)

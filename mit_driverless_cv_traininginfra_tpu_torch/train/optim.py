@@ -24,7 +24,11 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import all_sum_grads_
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import (
+    Mesh2D,
+    all_sum_,
+    all_sum_grads_,
+)
 
 
 def make_optimizer(params, kind: str = "Adam", lr: float = 1e-3,
@@ -56,17 +60,31 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
 
 
+def split_global_norm(grads: Sequence[torch.Tensor], split, mesh) -> torch.Tensor:
+    """:func:`global_norm` of a tree whose leaves with their ``split`` flag
+    set are split over the ``model`` ``mesh`` (``grads`` holds this rank's
+    blocks of them): their squares are summed over the mesh and the whole
+    leaves' added once, which is optax's norm of the whole tree."""
+    sq = [torch.sum(g * g) for g in grads]
+    zero = torch.zeros_like(sq[0])
+    blocks = all_sum_(sum((q for q, k in zip(sq, split) if k), zero), mesh)
+    return torch.sqrt(blocks + sum((q for q, k in zip(sq, split) if not k), zero))
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        split=None, mesh=None) -> None:
     """``optax.clip_by_global_norm`` in place on ``grads``: only where
-    ``norm ≥ max_norm`` (:func:`global_norm`) each gradient becomes
-    ``g / norm · max_norm``, divided, then multiplied. No host read: the
-    test runs on the device and picks the divisor and the factor, which
-    are 1 where the norm is below the limit (``g / 1 · 1`` is ``g``); two
-    batched launches then scale every gradient."""
+    ``norm ≥ max_norm`` (:func:`global_norm`; :func:`split_global_norm`
+    given a ``model`` ``mesh`` and the ``split`` flags) each gradient
+    becomes ``g / norm · max_norm``, divided, then multiplied. No host
+    read: the test runs on the device and picks the
+    divisor and the factor, which are 1 where the norm is below the limit
+    (``g / 1 · 1`` is ``g``); two batched launches then scale every
+    gradient."""
     if not grads:
         return
-    norm = global_norm(grads)
+    norm = global_norm(grads) if mesh is None else split_global_norm(grads, split, mesh)
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -79,12 +97,24 @@ def optimizer_step(opt: torch.optim.Optimizer, mesh=None) -> None:
     whole batch's gradient, equal on every rank); clip their global norm
     to ``opt.grad_clip`` (when set; :func:`clip_by_global_norm`); then take
     the optimizer's step, which keeps the parameters and the optimizer
-    state equal on every rank."""
+    state equal on every rank.
+
+    On a :class:`Mesh2D` the sum runs over its ``data`` sub-mesh, and the
+    clip's norm counts the parameters marked ``model_split`` (blocks of
+    leaves split over ``model``, ``models/darknet.py``) over its ``model``
+    sub-mesh; the optimizer state of a block has the block's shape."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    model = mesh.model if isinstance(mesh, Mesh2D) else None
     if mesh is not None:
-        all_sum_grads_([p for g in opt.param_groups for p in g["params"]], mesh)
+        all_sum_grads_(params, mesh.data if model is not None else mesh)
     if getattr(opt, "grad_clip", 0.0):
-        clip_by_global_norm([p.grad for g in opt.param_groups for p in g["params"]
-                             if p.grad is not None], opt.grad_clip)
+        params = [p for p in params if p.grad is not None]
+        grads = [p.grad for p in params]
+        if model is None:
+            clip_by_global_norm(grads, opt.grad_clip)
+        else:
+            clip_by_global_norm(grads, opt.grad_clip,
+                                [getattr(p, "model_split", False) for p in params], model)
     opt.step()
 
 

@@ -18,6 +18,12 @@ statistics, the losses are this rank's shares of the global loss, the
 gradients are summed over the ranks before the clip and the update (so the
 parameters, running stats and optimizer state stay equal on every rank),
 and the losses returned are the global ones, equal on every rank.
+
+The YOLO steps also take a 2-D ``(data, model)`` mesh (``Mesh2D``), under
+which the model is a tensor-parallel :class:`TrainDarknet` on its
+``model`` sub-mesh: the batch norms, the loss and the reported values then
+sum over the ``data`` sub-mesh as above, and the optimizer step sums the
+gradients there (``optimizer_step``).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.cross_ratio_loss import (
 from mit_driverless_cv_traininginfra_tpu_torch.models.yolo_loss import yolo_loss
 from mit_driverless_cv_traininginfra_tpu_torch.ops import device_aug
 from mit_driverless_cv_traininginfra_tpu_torch.ops.heatmap import gaussian_heatmaps
-from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import all_sum_
+from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import all_sum_, data_axis
 from mit_driverless_cv_traininginfra_tpu_torch.train.optim import optimizer_step
 
 
@@ -59,14 +65,15 @@ def yolo_train_step(model, opt, images, targets, xy_loss: float = 2.0,
     sync. The heads are cast back to f32 before the loss. In f32 the step
     turns TF32 off (cuDNN and matmul flags), so f32 is f32 on the card."""
     dtype = _compute_dtype(compute_dtype)
+    dp = data_axis(mesh)
     opt.zero_grad(set_to_none=True)
     heads = [h.float() for h in model.forward_features(images, train=True,
-                                                       dtype=dtype, mesh=mesh)]
+                                                       dtype=dtype, mesh=dp)]
     loss, comps = yolo_loss(model.spec, heads, targets, xy_loss, wh_loss,
-                            object_loss, no_object_loss, mesh=mesh)
+                            object_loss, no_object_loss, mesh=dp)
     loss.backward()
     optimizer_step(opt, mesh)
-    return _global(mesh, loss.detach(), comps.detach())
+    return _global(dp, loss.detach(), comps.detach())
 
 
 def yolo_train_step_device_aug(model, opt, images, labels_px, draws: dict,
@@ -86,7 +93,7 @@ def yolo_train_step_device_aug(model, opt, images, labels_px, draws: dict,
     and this rank takes its rows of them."""
     _, H, W, _ = images.shape
     if mesh is not None:
-        draws = {k: v[mesh.rows(v.shape[0])] for k, v in draws.items()}
+        draws = {k: v[data_axis(mesh).rows(v.shape[0])] for k, v in draws.items()}
     images, labels_px = device_aug.apply(images, labels_px, draws)
     targets = device_aug.pixel_labels_to_targets(labels_px, H, W)
     return yolo_train_step(model, opt, images, targets, xy_loss=xy_loss,
@@ -111,9 +118,10 @@ def yolo_eval_step(model, images, targets, xy_loss: float = 2.0,
                    no_object_loss: float = 25.0, mesh=None):
     """Eval-mode forward (running stats, f32) and the loss: ``(loss,
     components (6,))``, global under a ``mesh``."""
+    dp = data_axis(mesh)
     heads = model.forward_features(images, train=False)
-    return _global(mesh, *yolo_loss(model.spec, heads, targets, xy_loss, wh_loss,
-                                    object_loss, no_object_loss, mesh=mesh))
+    return _global(dp, *yolo_loss(model.spec, heads, targets, xy_loss, wh_loss,
+                                  object_loss, no_object_loss, mesh=dp))
 
 
 def rektnet_train_step(model, opt, images, target_hm, target_points,
