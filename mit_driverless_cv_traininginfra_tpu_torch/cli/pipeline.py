@@ -12,7 +12,9 @@ back to the frame's pixels, drawn and printed. Images are read by
 ``data/decode.read_rgb`` (JPEG, PNG or ``.npy``) and written beside their
 name as ``pipeline_<name>`` (an array for ``.npy``). Videos need OpenCV
 (``cv2.VideoCapture``/``VideoWriter``) and raise without it. The JAX
-package's ``packed_stem`` is a TPU layout rewrite and is not ported.
+package's CLI runs blocks 0-1 as the packed space-to-depth stem; this one
+runs the plain stem, the same function and the faster of the two on the
+card (PERF.md); ``Darknet(packed_stem=)`` runs the packed one.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 frames (counterpart of the JAX package's ``cli/serve.py``).
 
 Loads both models (a Darknet ``.weights`` and a RektNet ``.pt``), slices
-the detector's heads to its classes, quantizes to int8 on the stream's own
-leading frames when asked, builds the (batch, capacity) bucket lattice
+the detector's heads to its classes, quantizes to int8 on the stream's
+own leading frames when asked, builds the (batch, capacity) bucket lattice
 (``TwoStageServer.warmup``: a CUDA graph per bucket on the card), then
 streams the source through in fixed batches; a short final batch rides a
 padded bucket. Detections and their 7 keypoints are written as CSV in
@@ -21,6 +21,16 @@ the model's input size). Runs on ``--device cuda`` unless ``--device cpu``
 is asked for. ``--mesh N`` splits each batch over the first N CUDA devices
 (N CPU entries with ``--device cpu``; ``TwoStageServer(mesh=)``), raising
 where fewer exist; the batch size must be a multiple of N.
+``--packed_stem`` runs blocks 0-1 as the packed space-to-depth stem where
+the spec allows it (bf16/f32: ``Darknet(packed_stem=)``; int8: ``stem_q``,
+used where the fused entry does not apply), as the JAX package's CLI
+always does; off by default, since the plain stem computes the same
+function faster on the card (PERF.md). ``--crop_kernel`` sets the
+server's ``crop_kernel`` (auto: on the card); the crop is kernel K1
+either way, and the flag turns the oversize watch's counters on or off.
+``--syn_oversize_tail K`` renders the last K synthetic scenes with cones
+up to 0.82 of the frame's height, boxes past the TPU crop kernel's
+window, to drive that watch.
 """
 
 from __future__ import annotations
@@ -41,11 +51,6 @@ from mit_driverless_cv_traininginfra_tpu_torch.utils.logger import add_bool_arg
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".npy")
 VID_EXTS = (".mp4", ".avi", ".mov", ".mkv")
-
-LEFT_OUT = ("Not carried over from the JAX package's serve CLI: "
-            "--crop_kernel and --syn_oversize_tail, which drive the TPU crop "
-            "kernel's DMA window and its oversize watch; the CUDA crop "
-            "samples boxes of every size exactly.")
 
 
 def _iter_source(source: str):
@@ -136,8 +141,7 @@ def _letterbox_u8(img: np.ndarray, H: int, W: int) -> np.ndarray:
 
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="warmed two-stage serving over a stream of frames",
-        epilog=LEFT_OUT)
+        description="warmed two-stage serving over a stream of frames")
     parser.add_argument("--source", type=str, required=True,
                         help="video file (needs OpenCV), directory of "
                              "images and/or .npy frames, or synthetic:N (N "
@@ -173,6 +177,16 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--inflight", type=int, default=1,
                         help="batches kept in flight before fencing the "
                              "oldest (results stay in order)")
+    parser.add_argument("--syn_oversize_tail", type=int, default=0,
+                        help="synthetic source only: render the last K "
+                             "scenes with cones up to 0.82 of the frame's "
+                             "height, whose boxes pass the TPU crop "
+                             "kernel's window (drives the oversize watch)")
+    parser.add_argument("--crop_kernel", choices=("auto", "on", "off"),
+                        default="auto",
+                        help="report the crop as the crop kernel, with its "
+                             "oversize watch's counters: auto (on the card), "
+                             "on, off; the crop is kernel K1 either way")
     parser.add_argument("--syn_repeat", type=int, default=1,
                         help="cycle the synthetic scenes this many times "
                              "(render once, serve N·R frames)")
@@ -192,6 +206,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_wait_ms", type=float, default=2.0,
                         help="MicroBatcher co-arrival window")
     add_bool_arg(parser, "vanilla_anchor", False, "use the vanilla anchors")
+    add_bool_arg(parser, "packed_stem", False,
+                 "run blocks 0-1 as the packed space-to-depth stem where the "
+                 "cfg allows it (int8: stem_q, where the fused entry does "
+                 "not apply)")
     add_bool_arg(parser, "feed_uint8", True,
                  "ship frames to the device as uint8 and normalise there "
                  "(4x fewer host-to-device bytes than f32)")
@@ -226,6 +244,8 @@ def _models(opt, spec, dev, lead_frames):
     spec, folded = stem_opt.slice_preyolo(
         spec, darknet.fold_bn(params, state, spec))
     folded = _tree_to(folded, dev)
+    packed = (stem_opt.build_packed_stem(folded)
+              if opt.packed_stem and stem_opt.stem_is_packable(spec) else None)
     rfolded = _tree_to(rektnet.fold_bn(*rektnet.load_torch_checkpoint(
         opt.rektnet_weights)), dev)
     if opt.precision == "int8":
@@ -244,12 +264,14 @@ def _models(opt, spec, dev, lead_frames):
             rfolded, quantize.calibrate_rektnet(rfolded, np.stack(crops)))
         entry_q = (entry.quantize_entry(folded, amax)
                    if entry.entry_block_applicable(spec) else None)
+        stem_q = (quantize.quantize_packed_stem(packed, amax)
+                  if packed is not None else None)
         yolo = quantize.Int8Darknet(
-            spec, quantize.quantize_params(spec, folded, amax), entry_q)
+            spec, quantize.quantize_params(spec, folded, amax), entry_q, stem_q)
         rekt = quantize.Int8RektNet(rekt_q)
     else:
         dtype = torch.bfloat16 if opt.precision == "bf16" else torch.float32
-        yolo = darknet.Darknet(spec, folded).to(dtype=dtype)
+        yolo = darknet.Darknet(spec, folded, packed).to(dtype=dtype)
         rekt = rektnet.RektNet(rfolded).to(dtype=dtype)
         if dev.type == "cuda":
             yolo.to(memory_format=torch.channels_last)
@@ -335,9 +357,13 @@ def main(argv=None) -> int:
         def _syn_frames():
             rng = np.random.default_rng(42)
             made, cache = 0, []
+            head = n_syn - max(0, min(opt.syn_oversize_tail, n_syn))
             while made < n_syn:
-                k = min(64, n_syn - made)
-                imgs, _ = yolo_batch(rng, k, size=H)
+                k = min(64, (head if made < head else n_syn) - made)
+                # the tail's cones reach 0.82 of the frame's height, while
+                # mid-size ones keep detections coming (the JAX CLI's mix)
+                kw = {} if made < head else dict(min_h=24, max_h=int(H * 0.82))
+                imgs, _ = yolo_batch(rng, k, size=H, **kw)
                 for i in range(k):
                     frame = (imgs[i] * 255).astype(np.uint8)
                     if opt.syn_repeat > 1:
@@ -375,7 +401,10 @@ def main(argv=None) -> int:
     server = TwoStageServer(yolo, rekt, conf_thresh=opt.conf_thres,
                             nms_thresh=opt.nms_thres, max_det=opt.max_det,
                             policy=AdaptiveCapacity(),
-                            observe_every=opt.observe_every, mesh=mesh)
+                            observe_every=opt.observe_every,
+                            crop_kernel={"auto": None, "on": True,
+                                         "off": False}[opt.crop_kernel],
+                            mesh=mesh)
     # what crosses host → device per batch: uint8, normalised on the device
     # in the bucket's graph, or frames in the detector's dtype
     wire_dtype = torch.uint8 if opt.feed_uint8 else yolo.frame_dtype

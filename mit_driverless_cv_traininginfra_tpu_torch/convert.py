@@ -7,10 +7,12 @@ given as numpy arrays, to the same tree of torch tensors with OIHW conv
 weights, and :func:`to_jax` maps a port tree back (a trained
 ``TrainDarknet``'s ``trees()``, say); BN folding then happens in the port's own ``fold_bn``
 (``models.darknet.fold_bn``, ``models.rektnet.fold_bn``), so folding is
-held against the JAX package too. :func:`quantized_from_jax` carries the
-JAX package's int8 bundles across (``quantize_params``,
-``quantize_rektnet_params``, ``quantize_entry``) with their dtypes, so
-both packages can run on identical integers.
+held against the JAX package too. The packed stem's float tree
+(``build_packed_stem``: HWIO ``"w1"``, ``"w2"``) goes across the same way.
+:func:`quantized_from_jax` carries the JAX package's int8 bundles across
+(``quantize_params``, ``quantize_packed_stem``, ``quantize_rektnet_params``,
+``quantize_entry``) with their dtypes, so both packages can run on
+identical integers.
 
 No trained weights ship with the repository, so :func:`init_darknet_np`
 and :func:`init_rektnet_np` make seeded random JAX-layout trees in numpy;
@@ -28,17 +30,22 @@ from mit_driverless_cv_traininginfra_tpu_torch.config.darknet_cfg import (
     ShortcutBlock,
 )
 
+# the keys under which a tree holds conv weights: every conv's, and the
+# packed stem's two
+WEIGHT_KEYS = ("w", "w1", "w2")
+
 
 def from_jax(tree, device="cpu"):
     """Nested dict of numpy arrays (JAX layout) → nested dict of f32
-    tensors on ``device``; 4-D arrays under ``"w"`` go HWIO → OIHW."""
+    tensors on ``device``; 4-D arrays under ``WEIGHT_KEYS`` go HWIO →
+    OIHW."""
     out = {}
     for key, v in tree.items():
         if isinstance(v, dict):
             out[key] = from_jax(v, device)
             continue
         a = np.asarray(v, np.float32)
-        if key == "w" and a.ndim == 4:
+        if key in WEIGHT_KEYS and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return out
@@ -46,15 +53,15 @@ def from_jax(tree, device="cpu"):
 
 def to_jax(tree):
     """Nested dict of tensors (the port's layout) → nested dict of f32
-    numpy arrays in the JAX package's layout: 4-D arrays under ``"w"`` go
-    OIHW → HWIO."""
+    numpy arrays in the JAX package's layout: 4-D arrays under
+    ``WEIGHT_KEYS`` go OIHW → HWIO."""
     out = {}
     for key, v in tree.items():
         if isinstance(v, dict):
             out[key] = to_jax(v)
             continue
         a = v.detach().float().cpu().numpy()
-        if key == "w" and a.ndim == 4:
+        if key in WEIGHT_KEYS and a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)
         out[key] = np.ascontiguousarray(a)
     return out

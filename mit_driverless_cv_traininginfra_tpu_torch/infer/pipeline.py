@@ -8,15 +8,17 @@ function).
                                                 └─ RektNet ─ soft-argmax (K2)
                                                         └─ keypoints in frame px
 
-In the int8 configuration the detector is ``Int8Darknet`` (fused entry
-with kernel K4, int8 convolutions, bf16 activations) and the keypoint net
-``Int8RektNet``; frames are bf16.
+In the bf16/f32 configuration the detector is a ``Darknet``, with the
+packed space-to-depth stem where the serving CLIs build it
+(``Darknet(packed_stem=)``, the JAX package's ``packed_stem`` argument);
+in the int8 one an ``Int8Darknet`` (fused entry with kernel K4, or the
+int8 packed stem, int8 convolutions, bf16 activations) and the keypoint
+net ``Int8RektNet``; frames are bf16.
 
 Fixed capacity everywhere, as in the JAX package: every frame yields
 exactly ``max_det`` slots (masked), and the compacted crop path runs
-RektNet on exactly ``crop_capacity`` crops, so no stage waits on the host.
-Not ported: ``kpt_pad_multiple`` (a TPU schedule experiment) and
-``packed_stem`` (a TPU layout fix).
+RektNet on exactly ``crop_capacity`` crops (zero-padded up to a multiple
+of ``kpt_pad_multiple`` where asked), so no stage waits on the host.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ def kept_slots(sel, mask):
 
 
 def _crops_and_keypoints(kpt_apply, frames, boxes, scores, mask,
-                         crop_size: int, crop_capacity):
+                         crop_size: int, crop_capacity,
+                         kpt_pad_multiple: int = 0):
     """ROI crop + keypoint net, optionally compacted to the valid slots.
 
     ``crop_capacity=None`` (or ≥ B·K) crops every slot. Otherwise the top
@@ -79,7 +82,12 @@ def _crops_and_keypoints(kpt_apply, frames, boxes, scores, mask,
     run through the net and scattered back; equal to the dense pass when
     #valid ≤ capacity, and an overflow drops the lowest-score keypoints,
     never boxes. Returns ``(pts (B, K, 7, 2) in [0, 1] crop coords,
-    kept (B, K) bool)``: ``kept`` marks valid slots whose crop ran."""
+    kept (B, K) bool)``: ``kept`` marks valid slots whose crop ran.
+
+    ``kpt_pad_multiple`` (compacted path only): the crop buffer goes to
+    the keypoint net zero-padded up to the next multiple of it, and the
+    pad rows' outputs are sliced off; the crop stays at the capacity. 0
+    pads nothing."""
     B, K = mask.shape
     flat_boxes = boxes.reshape(B * K, 4)
     if crop_capacity is None or crop_capacity >= B * K:
@@ -89,7 +97,10 @@ def _crops_and_keypoints(kpt_apply, frames, boxes, scores, mask,
     sel = top_crop_slots(mask, scores, crop_capacity)
     crops_c = roi_crop(frames, flat_boxes[sel], sel // K, crop_size,
                        crop_size)
-    pts_c = kpt_apply(crops_c)  # (C, 7, 2)
+    n_pad = -crop_capacity % kpt_pad_multiple if kpt_pad_multiple else 0
+    if n_pad:
+        crops_c = torch.cat([crops_c, crops_c.new_zeros((n_pad, *crops_c.shape[1:]))])
+    pts_c = kpt_apply(crops_c)[:crop_capacity]  # (C, 7, 2)
     pts = torch.zeros((B * K, 7, 2), dtype=pts_c.dtype, device=pts_c.device)
     pts[sel] = pts_c
     return pts.reshape(B, K, 7, 2), kept_slots(sel, mask)
@@ -107,10 +118,15 @@ def normalize_u8(frames):
 def two_stage_pipeline(yolo: YoloHeads, rekt, frames,
                        conf_thresh: float = 0.8, nms_thresh: float = 0.25,
                        max_det: int = 16, crop_size: int = 80,
-                       crop_capacity=None) -> PipelineOut:
+                       crop_capacity=None, kpt_pad_multiple: int = 0) -> PipelineOut:
     """frames (B, H, W, 3) in [0, 1] (or uint8), H/W = the spec's input
     size, on the models' device; ``yolo`` is a ``Darknet`` or an
     ``Int8Darknet``, ``rekt`` a ``RektNet`` or an ``Int8RektNet``.
+
+    The crop is K1 (``ops/cuda_crop.py``), the port's counterpart of both
+    of the JAX package's compacted crops (its ``crop_kernel`` switch): the
+    windowed TPU kernel by role, the exact indexed crop by result at any
+    box size. ``kpt_pad_multiple``: see :func:`_crops_and_keypoints`.
 
     uint8 frames are the wire-efficient feed: normalised on the device in
     f32 and cast to ``yolo.frame_dtype`` (bf16 for int8). The normalise is
@@ -123,7 +139,8 @@ def two_stage_pipeline(yolo: YoloHeads, rekt, frames,
     dets = yolo(frames)  # (B, N, 5): the 1-class decode
     boxes, scores, mask = _postprocess(dets, conf_thresh, nms_thresh, max_det)
     pts, kept = _crops_and_keypoints(lambda c: rekt(c)[1], frames, boxes,
-                                     scores, mask, crop_size, crop_capacity)
+                                     scores, mask, crop_size, crop_capacity,
+                                     kpt_pad_multiple)
     x0y0 = boxes[..., None, 0:2]
     wh_box = (boxes[..., 2:4] - boxes[..., 0:2])[..., None, :]
     kpts = torch.where(kept[..., None, None], x0y0 + pts * wh_box,
@@ -134,5 +151,6 @@ def two_stage_pipeline(yolo: YoloHeads, rekt, frames,
 # The int8 serving configuration (the JAX package's two_stage_pipeline_int8
 # with entry_q inside the detector) runs the same stages on the models of
 # models.quantize: calibrate → quantize_params → Int8Darknet (fused entry,
-# kernel K4) and calibrate_rektnet → quantize_rektnet_params → Int8RektNet.
+# kernel K4, or the int8 packed stem) and calibrate_rektnet →
+# quantize_rektnet_params → Int8RektNet.
 two_stage_pipeline_int8 = two_stage_pipeline

@@ -63,13 +63,22 @@ the server's without a mesh, also when the valid detections exceed the
 capacity; outputs come back on the lead device. A batch that does not
 divide raises, as the JAX server does.
 
-The int8 configuration comes as models, not as the JAX server's quantized
-bundles, so there is no ``from_params``. Not ported: the int8 packed stem
-(``stem_q``, ``packed_stem``: TPU layout fixes, to be measured on the card
-first), and the windowed-crop oversize watch with its
-auto-degrade and its ``oversize_*`` / ``crop_kernel_*`` counters: they
-guard the TPU crop kernel's window, and the CUDA crop (K1) samples every
-box exactly, whatever its size.
+The server takes models: a ``Darknet`` (its packed stem built in, when
+given ``packed_stem``) or an ``Int8Darknet``, and a ``RektNet`` or an
+``Int8RektNet``. :meth:`TwoStageServer.from_params` builds the int8 pair
+from the JAX server's bundles instead (``yolo_q``, ``stem_q``, ``rekt_q``,
+``entry_q``: the port's ``models.quantize`` / ``ops.entry`` output, or the
+JAX package's through ``convert.quantized_from_jax``).
+
+The crop kernel's oversize watch (``crop_kernel``): where the JAX server
+serves the TPU's windowed crop kernel, it counts the observed valid boxes
+past the kernel's DMA window and, past a share of them, moves to its
+exact crop for good. Here the crop is K1 either way, which has no window
+and samples every box exactly (``ops/cuda_crop.py``), so no box is ever
+past it. ``stats()`` carries the JAX server's four keys with their
+meaning, derived: ``oversize_observed`` is the running sum of the observed
+masks and ``oversize_boxes`` 0 (both None with ``crop_kernel`` off),
+``crop_kernel_active`` is ``crop_kernel`` and ``crop_kernel_switches`` 0.
 
 Usage::
 
@@ -100,6 +109,10 @@ from mit_driverless_cv_traininginfra_tpu_torch.infer.pipeline import (
     two_stage_pipeline,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import YoloHeads
+from mit_driverless_cv_traininginfra_tpu_torch.models.quantize import (
+    Int8Darknet,
+    Int8RektNet,
+)
 from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import (
     batch_sharding,
     replicate,
@@ -153,13 +166,19 @@ class TwoStageServer:
     the nearest run capacity ≥ the want (``bucket_clamps``), or, above
     every run one, to the largest (``capacity_exhausted``), or with
     ``grow_past_warmed`` to the want itself, a new bucket (counted in
-    ``compiles``; on CUDA captured at that request)."""
+    ``compiles``; on CUDA captured at that request).
+
+    ``crop_kernel``: whether the crop is reported as the crop kernel, with
+    its oversize watch (module docstring); None is on when the server's
+    device is CUDA (the JAX server's "auto", the card in the TPU's
+    place)."""
 
     def __init__(self, yolo: YoloHeads, rekt, *,
                  conf_thresh: float = 0.8, nms_thresh: float = 0.25,
                  max_det: int = 16, crop_size: int = 80,
                  policy: Optional[AdaptiveCapacity] = None,
-                 observe_every: int = 8, grow_past_warmed: bool = False,
+                 observe_every: int = 8, crop_kernel: Optional[bool] = None,
+                 grow_past_warmed: bool = False,
                  pad_to_batch: bool = True, pad_max_factor: int = 4,
                  latency_window: int = 256, defer_observation: bool = True,
                  cuda_graphs: bool = True, mesh=None):
@@ -195,6 +214,9 @@ class TwoStageServer:
         self.batch_pads = 0       # short batches padded up to a run B
         self.pad_spurious = 0     # detections fired by zero pad frames
         self.warmup_seconds = 0.0
+        self.crop_kernel = (self.device.type == "cuda" if crop_kernel is None
+                            else bool(crop_kernel))
+        self.oversize_observed = 0   # valid boxes of the observed batches
         # CUDA graphs: the graph of each (shard, batch, capacity, frame
         # shape, dtype) (shard None without a mesh), and a pool and capture
         # stream a device
@@ -210,6 +232,15 @@ class TwoStageServer:
         self.pipeline_walls: deque[tuple[int, float]] = deque(
             maxlen=latency_window)
         self._pending: Optional[_Observation] = None
+
+    @classmethod
+    def from_params(cls, spec, yolo_q, stem_q, rekt_q, entry_q=None, **kw):
+        """The int8 server from the JAX server's bundles, in the port's
+        layout: ``Int8Darknet(spec, yolo_q, entry_q=entry_q,
+        stem_q=stem_q)`` and ``Int8RektNet(rekt_q)``, on the bundles'
+        device. ``kw`` goes to the constructor."""
+        yolo = Int8Darknet(spec, yolo_q, entry_q=entry_q, stem_q=stem_q)
+        return cls(yolo.eval(), Int8RektNet(rekt_q).eval(), **kw)
 
     # -- buckets --------------------------------------------------------------
 
@@ -448,13 +479,16 @@ class TwoStageServer:
     def _observe(self, obs: _Observation,
                  ring: Optional[deque] = None) -> None:
         """Wait for the observed batch alone, then feed the policy (mask
-        sum), the timing ring (if any) and pad_spurious."""
+        sum), the timing ring (if any), pad_spurious and
+        ``oversize_observed``."""
         if obs.ready is not None:
             obs.ready.synchronize()
         if ring is not None:
             ring.append((obs.B0, (time.perf_counter() - obs.t0) * 1000.0))
         mask = obs.mask.numpy().astype(bool)
-        self.policy.observe(int(mask.sum()), obs.cap)
+        n_valid = int(mask.sum())
+        self.policy.observe(n_valid, obs.cap)
+        self.oversize_observed += n_valid
         if mask.shape[0] != obs.B0:
             self.pad_spurious += int(mask[obs.B0:].sum())
 
@@ -515,9 +549,9 @@ class TwoStageServer:
         return out
 
     def stats(self) -> dict:
-        """Serving counters under the JAX server's keys (less its crop
-        window watch), and the CUDA graphs captured and replayed; reads
-        any stashed observation first."""
+        """Serving counters under the JAX server's keys, and the CUDA
+        graphs captured and replayed; reads any stashed observation
+        first."""
         self._materialize_pending()
         return {
             "calls": self.calls,
@@ -535,6 +569,12 @@ class TwoStageServer:
             "current_capacity": self.current_capacity,
             "mean_load": (float(np.mean(self.policy.loads))
                           if self.policy.loads else None),
+            # the oversize watch's keys (module docstring): K1 has no window
+            "oversize_boxes": 0 if self.crop_kernel else None,
+            "oversize_observed": (self.oversize_observed if self.crop_kernel
+                                  else None),
+            "crop_kernel_active": self.crop_kernel,
+            "crop_kernel_switches": 0,
             "graphs": len(self._graphs),
             "replays": self.replays,
             **self.latency_stats(),

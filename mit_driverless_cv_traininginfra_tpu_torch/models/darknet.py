@@ -9,8 +9,13 @@ trees mirror the JAX package's with OIHW weights: ``{"<block index>":
 linear pre-yolo convs, plus a state tree of BN running ``{"mean",
 "var"}``. :func:`init_params` makes them, :class:`TrainDarknet` trains
 them, :func:`fold_bn` folds them and :class:`Darknet` runs the folded
-graph. Frames, activations and head outputs are NHWC; each convolution
-views its input as NCHW (channels_last). :func:`load_darknet_weights` and
+graph. Both can run blocks 0-1 as the packed space-to-depth stem
+(``models/stem_opt.py``): ``Darknet(packed_stem=)`` on its folded packed
+weights, ``TrainDarknet.forward_features(packed_stem=True)`` on packed
+weights rebuilt from the canonical ones every forward, with its batch
+norm taking the statistics of the four parity planes as one. Frames,
+activations and head outputs are NHWC; each convolution views its input
+as NCHW (channels_last). :func:`load_darknet_weights` and
 :func:`save_darknet_weights` read and write such trees as Darknet
 ``.weights`` files (local paths).
 
@@ -45,6 +50,13 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import (
     _BN,
     BN_EPS,
     conv2d,
+)
+from mit_driverless_cv_traininginfra_tpu_torch.models.stem_opt import (
+    apply_packed_stem,
+    pack_input,
+    pack_stem_weights,
+    pad_packed,
+    stem_is_packable,
 )
 from mit_driverless_cv_traininginfra_tpu_torch.parallel.mesh import (
     copy_to_model,
@@ -346,13 +358,14 @@ class YoloHeads(nn.Module):
         x, _ = self._walk(x, stop + 1)
         return x
 
-    def _walk(self, x, end: int, conv=None, pool=_maxpool_nhwc):
+    def _walk(self, x, end: int, conv=None, pool=_maxpool_nhwc, enter=None):
         """Blocks up to ``end`` (exclusive) → (last activation, pre-yolo
         maps met so far). ``conv(i, x)`` runs conv block ``i`` (default
-        :meth:`_conv`), ``pool(x, size, stride)`` a maxpool block."""
+        :meth:`_conv`), ``pool(x, size, stride)`` a maxpool block,
+        ``enter(x)`` the first blocks (default :meth:`_enter`)."""
         conv = conv or self._conv
         slope = self.spec.net.leaky_slope
-        x, layer_outputs = self._enter(x)
+        x, layer_outputs = (enter or self._enter)(x)
         if end < len(layer_outputs):
             raise ValueError(f"the walk starts after block "
                              f"{len(layer_outputs) - 1}; cannot stop at "
@@ -395,21 +408,54 @@ class YoloHeads(nn.Module):
         return self.detections(x, with_classes=False)
 
 
+class _PackedStem(nn.Module):
+    """:func:`~.stem_opt.build_packed_stem`'s tree held as buffers, so
+    that ``.to()`` casts and moves it with the model."""
+
+    def __init__(self, packed):
+        super().__init__()
+        for k in ("w1", "b1", "w2", "b2"):
+            self.register_buffer(k, packed[k].detach().clone())
+
+    def forward(self, x, slope: float):
+        return apply_packed_stem(dict(self.named_buffers()), x, slope)
+
+
 class Darknet(YoloHeads):
     """Eval-mode Darknet on a :func:`fold_bn` tree of ``spec``. It takes
-    frames in its weights' dtype (``frame_dtype``)."""
+    frames in its weights' dtype (``frame_dtype``).
 
-    def __init__(self, spec: NetworkSpec, folded):
+    ``packed_stem`` (:func:`~.stem_opt.build_packed_stem` of the same
+    tree) runs blocks 0-1 as the packed space-to-depth stem; their plain
+    convs are then not built. Blocks 0-1 are never routed to in a
+    packable spec, so block 1's output fills both slots of the walk."""
+
+    def __init__(self, spec: NetworkSpec, folded, packed_stem=None):
         super().__init__(spec)
+        self.stem = None
+        start = 0
+        if packed_stem is not None:
+            if not stem_is_packable(spec):
+                raise ValueError("packed_stem given, but blocks 0-1 of this spec "
+                                 "are not a 3×3 s1 and a 3×3 s2 conv on an even input")
+            self.stem = _PackedStem(packed_stem)
+            start = 2
         self.convs = nn.ModuleDict({
             str(i): conv2d(folded[str(i)]["w"], folded[str(i)]["b"],
                            stride=b.stride, padding=(b.size - 1) // 2)
-            for i, b in enumerate(spec.blocks) if isinstance(b, ConvBlock)
+            for i, b in list(enumerate(spec.blocks))[start:]
+            if isinstance(b, ConvBlock)
         })
 
     @property
     def frame_dtype(self) -> torch.dtype:
         return next(iter(self.convs.values())).weight.dtype
+
+    def _enter(self, x):
+        if self.stem is None:
+            return x, []
+        x = self.stem(x, self.spec.net.leaky_slope)
+        return x, [x, x]
 
     def _conv(self, i: int, x):
         return self.convs[str(i)](x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -494,7 +540,12 @@ class TrainDarknet(YoloHeads):
     Spatial: ``forward_features(x, spatial=model mesh)`` (and so
     ``detections``) runs the eval forward on this rank's frame rows (the
     part :func:`~..parallel.mesh.shard_spatial` gives it), with whole
-    weights."""
+    weights.
+
+    Packed stem: ``forward_features(x, packed_stem=True)`` runs blocks 0-1
+    as the space-to-depth stem (the JAX package's ``train_packed_stem``;
+    the spec must be ``stem_is_packable``). Neither tensor parallel nor
+    the spatial forward takes it, as in the JAX package."""
 
     frame_dtype = torch.float32
 
@@ -511,20 +562,57 @@ class TrainDarknet(YoloHeads):
         return y.permute(0, 2, 3, 1)
 
     def forward_features(self, x, train: bool = False, dtype=torch.float32,
-                         mesh=None, spatial=None):
+                         mesh=None, spatial=None, packed_stem: bool = False):
         """x (B, H, W, C) → the raw pre-yolo maps in ``dtype``, one per
         yolo head, each NHWC (B, h, w, A·(5+C)). Under a process ``mesh``
         the training batch norms take the global batch's statistics.
+        ``packed_stem``: blocks 0-1 run as the space-to-depth stem
+        (:meth:`_packed_stem`).
 
         ``spatial``: a ``model`` mesh over which the frame rows are split
         (:func:`~..parallel.mesh.spatial_rows`); ``x`` is this rank's rows.
         Each conv and pool takes its halo rows from its neighbours, the
         rest stays local, and the maps are gathered on H in rank order, so
         every rank returns the whole maps of its batch rows."""
+        enter = None
+        if packed_stem:
+            if spatial is not None or any(c.split is not None
+                                          for c in self.convs.values()):
+                raise ValueError("the packed stem runs on whole weights and whole "
+                                 "frames: not with tensor parallel (model_mesh) or "
+                                 "the spatial forward")
+            if not stem_is_packable(self.spec):
+                raise ValueError("packed_stem needs blocks 0-1 to be a 3×3 s1 and "
+                                 "a 3×3 s2 conv on an even input")
+            enter = functools.partial(self._packed_stem, train=train, dtype=dtype,
+                                      mesh=mesh)
         if spatial is not None:
             return self._spatial_features(x, dtype, spatial, train)
         conv = functools.partial(self._conv, train=train, dtype=dtype, mesh=mesh)
-        return self._walk(x.to(dtype), len(self.spec.blocks), conv)[1]
+        return self._walk(x.to(dtype), len(self.spec.blocks), conv,
+                          enter=enter)[1]
+
+    def _packed_stem(self, x, train: bool, dtype, mesh):
+        """Blocks 0-1 as the packed stem on NHWC ``x`` (the JAX package's
+        ``_packed_stem_train``): the packed weights gathered from the
+        canonical ``convs["0"/"1"].weight``
+        (:func:`~.stem_opt.pack_stem_weights`, so the gradients reach them
+        exactly), and block 0's batch norm on the packed (B, 4·C1, h, w)
+        output viewed as (4·B, C1, h, w): the four parity planes partition
+        the frame's positions, so the statistics and the running-stat
+        update are the plain path's up to summation order (the global
+        batch's under a process ``mesh``). Returns block 1's activation
+        and the walk's first two slots."""
+        c0, c1 = self.convs["0"], self.convs["1"]
+        slope = self.spec.net.leaky_slope
+        w1p, w2p = pack_stem_weights(c0.weight, c1.weight)
+        y = F.conv2d(pack_input(x).permute(0, 3, 1, 2), w1p.to(dtype), None, 1, 1)
+        B, c4, h, w = y.shape
+        y = c0.bn(y.reshape(4 * B, c4 // 4, h, w), dtype, train, mesh)
+        y = _leaky(y.reshape(B, c4, h, w), slope)
+        y = c1.bn(F.conv2d(pad_packed(y), w2p.to(dtype)), dtype, train, mesh)
+        y = _leaky(y, slope).permute(0, 2, 3, 1)
+        return y, [y, y]
 
     def _spatial_features(self, x, dtype, spatial, train: bool):
         if train or any(c.split is not None for c in self.convs.values()):

@@ -18,7 +18,9 @@ convolutions to XLA too. On CUDA ``_int_mm`` wants K and N multiples of 8
 and M > 16: weights are zero-padded once, rows per call.
 
 Pre-yolo head convs stay bf16, as in the JAX package. The fused entry path
-(blocks 0-4 as a 4×4/s2 conv1 plus kernel K4) lives in ``ops/entry.py``.
+(blocks 0-4 as a 4×4/s2 conv1 plus kernel K4) lives in ``ops/entry.py``;
+without it, a packable spec's blocks 0-1 run as the int8 packed
+space-to-depth stem (:func:`quantize_packed_stem`, ``models/stem_opt.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import (
 from mit_driverless_cv_traininginfra_tpu_torch.models.rektnet import (
     RektNet,
     soft_argmax_2d,
+)
+from mit_driverless_cv_traininginfra_tpu_torch.models.stem_opt import (
+    pack_input,
+    stem_is_packable,
 )
 
 ACT_DTYPE = torch.bfloat16  # activations between the int8 convs
@@ -210,6 +216,16 @@ def quantize_params(spec: NetworkSpec, folded_params, amax: Dict[str, float]):
     return qparams
 
 
+def quantize_packed_stem(packed, amax: Dict[str, float]):
+    """int8 bundle of the packed stem (``stem_opt.build_packed_stem``
+    output): conv1p's input scale is the frames' amax (block "0"'s input),
+    conv2p's the plain conv1 output's (block "1"'s input), since packing
+    only reorders pixels. ``{"c1", "c2"}``, each as ``_quantize_conv``
+    makes it."""
+    return {"c1": _quantize_conv(packed["w1"], packed["b1"], amax["0"]),
+            "c2": _quantize_conv(packed["w2"], packed["b2"], amax["1"])}
+
+
 class _FloatConv(nn.Module):
     """A pre-yolo conv on NHWC activations: ``conv(x, w) + b`` in the
     weights' dtype (bf16), the bias added after the conv's own rounding.
@@ -254,16 +270,21 @@ class Int8Darknet(YoloHeads):
     fused entry: the 4×4/s2 int8 conv1, then kernel K4 on CUDA tensors (its
     plain version on CPU ones); block 5 takes K4's int8 output directly.
     It requires ``ops.entry.entry_block_applicable(spec)``; its weights are
-    laid out for their consumers once, here (``ops.entry.pack_entry``)."""
+    laid out for their consumers once, here (``ops.entry.pack_entry``).
+
+    ``stem_q`` (:func:`quantize_packed_stem`) replaces blocks 0-1 with the
+    int8 packed stem when there is no ``entry_q`` (which takes precedence,
+    as in the JAX package): the frames packed 2×2 space-to-depth, an int8
+    3×3 conv, leaky, an int8 2×2 conv padded (1, 0) on each axis, leaky."""
 
     frame_dtype = ACT_DTYPE
 
-    def __init__(self, spec: NetworkSpec, qparams, entry_q=None):
+    def __init__(self, spec: NetworkSpec, qparams, entry_q=None, stem_q=None):
         super().__init__(spec)
         from mit_driverless_cv_traininginfra_tpu_torch.ops import entry
 
         self._entry_forward = entry.entry_forward_int8
-        self.entry = None
+        self.entry = self.stem = None
         start = 0
         if entry_q is not None:
             if not entry.entry_block_applicable(spec):
@@ -271,6 +292,14 @@ class Int8Darknet(YoloHeads):
                                  "are not the YOLOv3 entry pattern")
             self.entry = _Bundle(entry.pack_entry(entry_q))
             start = 5
+        elif stem_q is not None:
+            if not stem_is_packable(spec):
+                raise ValueError("stem_q given, but blocks 0-1 of this spec are "
+                                 "not a 3×3 s1 and a 3×3 s2 conv on an even input")
+            self.stem = nn.ModuleDict({
+                "c1": QConv(stem_q["c1"], padding=1),
+                "c2": QConv(stem_q["c2"], padding=((1, 0), (1, 0)))})
+            start = 2
         convs = {}
         for i, b in list(enumerate(spec.blocks))[start:]:
             if not isinstance(b, ConvBlock):
@@ -282,9 +311,13 @@ class Int8Darknet(YoloHeads):
 
     def _enter(self, x):
         x = x.to(ACT_DTYPE)
+        slope = self.spec.net.leaky_slope
+        if self.stem is not None:
+            h = _leaky(_qconv(pack_input(x), self.stem["c1"]), slope)
+            x = _leaky(_qconv(h, self.stem["c2"]), slope)
+            return x, [x, x]  # blocks 0-1 are never routed to
         if self.entry is None:
             return x, []
-        slope = self.spec.net.leaky_slope
         resq = self._entry_forward(self.entry.as_dict(), x, slope)
         x = _leaky(_qconv_q8in(resq, self.convs["5"]), slope)
         # blocks 0-4 are never routed to (entry_block_applicable): block

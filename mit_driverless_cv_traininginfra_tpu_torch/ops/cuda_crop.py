@@ -5,7 +5,9 @@
 its plain version, ``ops.image.roi_crop_bilinear_indexed``, for CPU
 tensors. The kernel needs no DMA window, so unlike the TPU kernel it has no
 box-size contract and no applicability check: every box is sampled
-exactly, and non-finite boxes never read outside the frame.
+exactly, whatever its size (no box is past a window, so the server's
+oversize watch counts none), and non-finite boxes never read outside the
+frame.
 
 A call is one launch: the kernel reads the boxes and frame indices as the
 pipeline hands them over and computes the sampling coordinates itself,

@@ -12,6 +12,9 @@ serving surfaces over a device mesh of N entries, each against one
 device. One ``OK`` line a surface:
 
 - the DP YOLO step, plain and with device augmentation;
+- the DP YOLO step through the packed space-to-depth stem: the loss
+  finite and the one-device step's, the parameters equal on every rank
+  (the JAX dry run's 2b);
 - ``evaluate_image_batch`` over the sharded batch, its per-image results
   gathered (and perfect detections, AP 1 on every image);
 - the DP RektNet step (cross-batch geometric loss);
@@ -30,9 +33,6 @@ mesh):
   update, the loss and the joined parameters the one-process step's;
 - the spatially sharded detect forward (H over ``model``, halo
   exchanges), equal to one process.
-
-Not run yet, as the port has no such surface: the packed-stem step
-(ROADMAP Queue 1 item 10).
 
 :func:`run_jobs` is the step runner the dry run, ``chip_smoke.py`` and
 the tests share: the same seeded jobs run under a process mesh (one rank's
@@ -346,8 +346,9 @@ def pixel_corners(targets: np.ndarray, size: int) -> np.ndarray:
 
 def dp_jobs(spec, B: int, seed: int = 0) -> list:
     """The dry run's DP jobs on ``spec`` at global batch ``B``: the YOLO
-    step, the device-aug step, the mAP evaluation and the RektNet step
-    (cross-batch geometric loss), each one SGD step."""
+    step, the device-aug step, the mAP evaluation, the RektNet step
+    (cross-batch geometric loss) and the packed-stem YOLO step, each one
+    SGD step."""
     rng = np.random.default_rng(seed)
     trees = convert.init_darknet_np(spec, rng)
     imgs = rng.uniform(0, 1, (B, spec.net.height, spec.net.width, 3)).astype(np.float32)
@@ -368,6 +369,8 @@ def dp_jobs(spec, B: int, seed: int = 0) -> list:
              batch=(crops, None, pts), lr=1e-2, steps=1,
              step_kw=dict(synth_target_sigma=1.0, geo_loss_gamma_horz=0.05,
                           geo_loss_gamma_vert=0.05, cross_batch=True)),
+        dict(family="yolo", spec=spec, trees=trees, batch=(imgs, targets),
+             lr=1e-2, steps=1, step_kw=dict(packed_stem=True)),
     ]
 
 
@@ -494,6 +497,13 @@ def main(argv=None) -> int:
         raise RuntimeError(f"{tag}: rektnet_train_step (total, loc, geo) {a} != {b}")
     print(f"{tag}: rektnet_train_step total={a[0]:.4f} loc={a[1]:.4f} "
           f"geo={a[2]:.4f} = one device's OK")
+    # run_job held the parameters equal on every rank
+    a, b = dp[4]["losses"][0], one[4]["losses"][0]
+    if not (np.isfinite(a).all() and np.allclose(a, b, rtol=1e-4, atol=1e-6)):
+        raise RuntimeError(f"{tag}: yolo_train_step[packed_stem] loss {a} != one "
+                           f"device's {b}")
+    print(f"{tag}: yolo_train_step[packed_stem] loss={a[0]:.4f} = one device's, "
+          "parameters equal on every rank OK")
     if two_d:
         check_mesh_2d(tag, spec, devices, jobs_2d, got_2d)
     else:
@@ -526,7 +536,6 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{tag}: TwoStagePP differs from the fused pipeline")
     print(f"{tag}: TwoStagePP (detect on {devices[0]}, keypoints on {devices[-1]}, "
           f"{len(micro)} microbatches) matches fused OK")
-    print(f"{tag}: not run (no such surface in the port yet): packed_stem")
     return 0
 
 

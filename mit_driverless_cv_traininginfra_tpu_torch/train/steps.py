@@ -24,6 +24,11 @@ which the model is a tensor-parallel :class:`TrainDarknet` on its
 ``model`` sub-mesh: the batch norms, the loss and the reported values then
 sum over the ``data`` sub-mesh as above, and the optimizer step sums the
 gradients there (``optimizer_step``).
+
+``packed_stem=True`` trains blocks 0-1 through the packed space-to-depth
+stem (``TrainDarknet.forward_features(packed_stem=True)``), alone or
+under a process mesh; the spec must be ``stem_is_packable``, and a
+tensor-parallel model refuses it.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ def _compute_dtype(name: str) -> torch.dtype:
 def yolo_train_step(model, opt, images, targets, xy_loss: float = 2.0,
                     wh_loss: float = 1.6, object_loss: float = 0.1,
                     no_object_loss: float = 25.0, compute_dtype: str = "float32",
-                    mesh=None):
+                    mesh=None, packed_stem: bool = False):
     """One step on (B, H, W, 3) ``images`` in [0, 1] and (B, T, 5)
     ``targets`` (normalised ``[class, cx, cy, w, h]``, zero rows are
     padding), both on the model's device. Updates the :class:`TrainDarknet`'s
@@ -67,8 +72,8 @@ def yolo_train_step(model, opt, images, targets, xy_loss: float = 2.0,
     dtype = _compute_dtype(compute_dtype)
     dp = data_axis(mesh)
     opt.zero_grad(set_to_none=True)
-    heads = [h.float() for h in model.forward_features(images, train=True,
-                                                       dtype=dtype, mesh=dp)]
+    heads = [h.float() for h in model.forward_features(
+        images, train=True, dtype=dtype, mesh=dp, packed_stem=packed_stem)]
     loss, comps = yolo_loss(model.spec, heads, targets, xy_loss, wh_loss,
                             object_loss, no_object_loss, mesh=dp)
     loss.backward()
@@ -80,7 +85,8 @@ def yolo_train_step_device_aug(model, opt, images, labels_px, draws: dict,
                                xy_loss: float = 2.0, wh_loss: float = 1.6,
                                object_loss: float = 0.1,
                                no_object_loss: float = 25.0,
-                               compute_dtype: str = "float32", mesh=None):
+                               compute_dtype: str = "float32", mesh=None,
+                               packed_stem: bool = False):
     """:func:`yolo_train_step` with the augmentation on the device in front
     of it (the JAX package's ``yolo_train_step_device_aug``): ``images``
     (B, H, W, C) as the dataset made them (``device_aug=True``: patched,
@@ -99,7 +105,8 @@ def yolo_train_step_device_aug(model, opt, images, labels_px, draws: dict,
     return yolo_train_step(model, opt, images, targets, xy_loss=xy_loss,
                            wh_loss=wh_loss, object_loss=object_loss,
                            no_object_loss=no_object_loss,
-                           compute_dtype=compute_dtype, mesh=mesh)
+                           compute_dtype=compute_dtype, mesh=mesh,
+                           packed_stem=packed_stem)
 
 
 def _global(mesh, *shares):

@@ -34,7 +34,9 @@ gradients, so the parameters follow the one-device run on the whole batch.
 rank 0 writes weights, state, scores and the ONNX file, and only rank 0
 prints.
 
-Not here yet: the space-to-depth training stem (``packed_stem``).
+``packed_stem`` trains blocks 0-1 through the packed space-to-depth stem
+(``train.steps``); validation runs the plain eval forward, as the JAX
+package's ``train/yolo_driver.py`` does.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from mit_driverless_cv_traininginfra_tpu_torch.models.darknet import (
     load_darknet_weights,
     save_darknet_weights,
 )
+from mit_driverless_cv_traininginfra_tpu_torch.models.stem_opt import stem_is_packable
 from mit_driverless_cv_traininginfra_tpu_torch.ops.device_aug import sample_draws
 from mit_driverless_cv_traininginfra_tpu_torch.ops.metrics import (
     evaluate_image_batch,
@@ -121,12 +124,13 @@ def _with_host_counts(batches, n_dev: int = 1):
 def run_epoch(*, label_prefix: str, data_loader, model, opt, device,
               num_steps: int, step, epoch: int, loss_consts, optimize: bool,
               compute_dtype: str = "float32", lr_warmup=None,
-              aug_gen=None, aug_flags=None, mesh=None):
+              aug_gen=None, aug_flags=None, mesh=None, packed_stem: bool = False):
     """One pass over ``data_loader``, training or (``optimize=False``)
     evaluating. ``step`` is a one-element list, the global step count.
     ``aug_gen`` (a ``torch.Generator`` on ``device``) turns on the
     device-aug step, each batch's draws taken from it with ``aug_flags``
-    (the global batch's draws: each rank takes its rows). Under a process
+    (the global batch's draws: each rank takes its rows). ``packed_stem``
+    trains through the packed stem. Under a process
     ``mesh`` this rank steps on its rows of each padded global batch; the
     losses are global. Returns ``(epoch_losses[7], epoch_time_total,
     epoch_num_targets)``."""
@@ -157,12 +161,12 @@ def run_epoch(*, label_prefix: str, data_loader, model, opt, device,
             loss, comps = yolo_train_step_device_aug(
                 model, opt, imgs, targets, draws, xy_loss=xy, wh_loss=wh,
                 object_loss=obj, no_object_loss=noobj,
-                compute_dtype=compute_dtype, mesh=mesh)
+                compute_dtype=compute_dtype, mesh=mesh, packed_stem=packed_stem)
         elif optimize:
             loss, comps = yolo_train_step(
                 model, opt, imgs, targets, xy_loss=xy, wh_loss=wh,
                 object_loss=obj, no_object_loss=noobj,
-                compute_dtype=compute_dtype, mesh=mesh)
+                compute_dtype=compute_dtype, mesh=mesh, packed_stem=packed_stem)
         else:
             loss, comps = yolo_eval_step(model, imgs, targets, xy_loss=xy,
                                          wh_loss=wh, object_loss=obj,
@@ -236,7 +240,7 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
                mixed_precision: bool = False, resume: bool = False,
                evaluate: bool = False, log_dir: str = "logs", device_aug: bool = False,
                aug_flags=None, seed: int = 17, train_dataset=None,
-               mesh=None) -> float:
+               mesh=None, packed_stem: bool = False) -> float:
     """The reference's epoch loop (the JAX ``yolo_driver.main`` after it
     has built its loaders) on ``model``, a :class:`TrainDarknet` on
     ``device`` (the card unless the caller asks for the CPU; a missing
@@ -255,7 +259,8 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
     writes ``spec.net.onnx_name(model_cfg)`` under ``output_path``:
     ``model_cfg`` is the path of the cfg ``model`` was built from.
     ``mesh``: this rank's process mesh (each rank runs this loop on its
-    rows; rank 0 alone writes files)."""
+    rows; rank 0 alone writes files). ``packed_stem``: the train steps run
+    blocks 0-1 as the packed space-to-depth stem."""
     device = resolve_device(device)
     lead = mesh is None or mesh.is_lead
     spec = model.spec
@@ -286,7 +291,8 @@ def train_yolo(model, opt, train_loader, val_loader, *, output_path: str,
                   epoch=epoch, loss_consts=loss_consts, optimize=True,
                   compute_dtype="bfloat16" if mixed_precision else "float32",
                   lr_warmup=(lr_warmup_steps, epoch_lr) if lr_warmup_steps else None,
-                  aug_gen=aug_gen, aug_flags=aug_flags, mesh=mesh)
+                  aug_gen=aug_gen, aug_flags=aug_flags, mesh=mesh,
+                  packed_stem=packed_stem)
         print("Completed epoch: ", epoch)
 
         if epoch % checkpoint_interval == 0 or epoch == num_epochs or step[0] >= num_steps:
@@ -357,13 +363,11 @@ def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
     ``n_devices`` > 1 launches that many ranks (``parallel/launch.py``:
     ``cuda:0``… on the card, raising where fewer exist; CPU processes over
     ``gloo`` with ``device="cpu"``), each running this function on its
-    process ``mesh``, and returns rank 0's result. ``packed_stem`` raises:
-    not ported. Returns the best validation loss."""
+    process ``mesh``, and returns rank 0's result. ``packed_stem`` trains
+    blocks 0-1 through the packed space-to-depth stem and raises the JAX
+    package's ``ValueError`` on a spec whose stem it does not fit. Returns
+    the best validation loss."""
     kwargs = dict(locals())  # first statement: the call's arguments only
-    if packed_stem:
-        raise NotImplementedError(
-            "packed_stem: the space-to-depth training stem is not ported "
-            "(ROADMAP Queue 2 item 5, training)")
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"n_devices must be ≥ 1, got {n_devices}")
     if mesh is None and (n_devices or 1) > 1:
@@ -372,6 +376,9 @@ def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
                       args=(main, kwargs))
     dev = resolve_device(device) if mesh is None else mesh.device
     spec = load_network_spec(model_cfg, vanilla_anchor=vanilla_anchor)
+    if packed_stem and not stem_is_packable(spec):
+        raise ValueError("--packed_stem requires the standard YOLOv3 "
+                         "stem (conv3x3/s1 then conv3x3/s2, even input)")
     os.makedirs(output_path, exist_ok=True)
     os.makedirs("logs", exist_ok=True)
     if mixed_precision == "auto":
@@ -432,5 +439,6 @@ def main(*, model_cfg: str, weights_path: Optional[str], output_path: str,
         # their own flags in both modes
         aug_flags=dict(lr_flip=bool(lr_flip), jitter=bool(augment_hsv or data_aug),
                        noise=bool(noise)),
-        seed=seed, train_dataset=train_ds, model_cfg=model_cfg, mesh=mesh)
+        seed=seed, train_dataset=train_ds, model_cfg=model_cfg, mesh=mesh,
+        packed_stem=packed_stem)
 

@@ -4,7 +4,9 @@ and a ``.pt`` written by the JAX package's savers (as
 ``tests/test_serve_cli.py`` sets them up). The frames are model-sized, so
 no resize enters the comparison: the CSV rows must match within the
 pipeline's tolerance and %.2f rounding, and the JSON summary must carry the
-JAX CLI's keys."""
+JAX CLI's keys. The JAX CLI runs the detector with the packed
+space-to-depth stem (the tiny cfg's stem is packable), the port's with the
+plain one unless ``--packed_stem`` is given, as the oversize run gives it."""
 
 import json
 
@@ -27,9 +29,10 @@ from mit_driverless_cv_traininginfra_tpu.train.checkpoints import (
 from mit_driverless_cv_traininginfra_tpu_torch.cli import serve
 from mit_driverless_cv_traininginfra_tpu_torch.data.synthetic import yolo_batch
 
-# the JAX summary keys the port leaves out: the TPU crop window's watch
-LEFT_OUT = {"oversize_boxes", "oversize_observed", "crop_kernel_active",
-            "crop_kernel_switches"}
+# the JAX summary keys the port leaves out: none
+LEFT_OUT = set()
+OVERSIZE_KEYS = ("oversize_boxes", "oversize_observed", "crop_kernel_active",
+                 "crop_kernel_switches")
 
 
 @pytest.fixture(scope="module")
@@ -61,17 +64,22 @@ def files(tmp_path_factory):
         return gap_threshold(conf, 3)
 
     syn, _ = yolo_batch(np.random.default_rng(42), 6, size=64)
+    # --syn_oversize_tail 3: the last 3 scenes with cones up to 0.82·64 px
+    rng = np.random.default_rng(42)
+    tail = np.concatenate([yolo_batch(rng, 3, size=64)[0],
+                           yolo_batch(rng, 3, size=64, min_h=24, max_h=52)[0]])
     return d, {"imgs": thresh(frames), "npy": thresh(frames),
                "synthetic:6": thresh((syn * 255).astype(np.uint8)),
-               "synthetic:4": thresh((syn[:4] * 255).astype(np.uint8))}
+               "synthetic:4": thresh((syn[:4] * 255).astype(np.uint8)),
+               "tail": thresh((tail * 255).astype(np.uint8))}
 
 
-def _args(files, source, csv, *extra):
+def _args(files, source, csv, *extra, thresh_key=None):
     d, thresh = files
     return ["--source", source, "--model_cfg", TINY_CFG,
             "--yolo_weights", str(d / "tiny.weights"),
             "--rektnet_weights", str(d / "rekt.pt"),
-            "--conf_thres", repr(thresh[source.rsplit("/", 1)[-1]]),
+            "--conf_thres", repr(thresh[thresh_key or source.rsplit("/", 1)[-1]]),
             "--max_det", "4",
             "--capacities", "8", "--vanilla_anchor", "--output_csv", str(csv),
             *extra]
@@ -170,12 +178,35 @@ def test_uint8_and_npy_feeds_match(files, tmp_path, capsys):
     assert out["u8"] == out["f32"] == out["npy"]
 
 
+def test_oversize_tail_with_the_crop_kernel_on(files, tmp_path, capsys):
+    """``--syn_oversize_tail 3 --crop_kernel on --packed_stem`` on the port
+    (K1, its oversize watch on) against the JAX CLI's ``--crop_kernel off``
+    (its exact crop) on the same scenes: the same CSV; the port's watch
+    observes every valid box of its observed batches and counts none
+    oversize, where the JAX summary reports the watch off."""
+    extra = ("--precision", "f32", "--batch_size", "2", "--syn_oversize_tail", "3",
+             "--observe_every", "1")
+    port = _run(serve.main, _args(files, "synthetic:6", tmp_path / "p.csv", *extra,
+                                  "--crop_kernel", "on", "--packed_stem", "--device", "cpu",
+                                  thresh_key="tail"), capsys)
+    ref = _run(jserve.main, _args(files, "synthetic:6", tmp_path / "j.csv", *extra,
+                                  "--crop_kernel", "off", thresh_key="tail"), capsys)
+    _same_csv(tmp_path / "p.csv", tmp_path / "j.csv")
+    _same_keys(port, ref)
+    assert [port[k] for k in OVERSIZE_KEYS] == [0, port["oversize_observed"], True, 0]
+    assert port["oversize_observed"] == round(ref["mean_load"] * ref["observations"]) > 0
+    assert [ref[k] for k in OVERSIZE_KEYS] == [None, None, False, 0]
+
+
 def test_device_defaults_to_cuda_and_left_out_flags_are_named(files, tmp_path):
     parser = serve._parser()
     assert parser.parse_args(["--source", "x", "--yolo_weights", "w",
                               "--rektnet_weights", "r"]).device == "cuda"
-    for flag in ("--mesh", "--crop_kernel", "--syn_oversize_tail"):
+    for flag in ("--mesh", "--crop_kernel", "--syn_oversize_tail", "--packed_stem"):
         assert flag in parser.format_help()
+    opt = parser.parse_args(["--source", "x", "--yolo_weights", "w",
+                             "--rektnet_weights", "r"])
+    assert (opt.crop_kernel, opt.syn_oversize_tail, opt.packed_stem) == ("auto", 0, False)
     if not torch.cuda.is_available():   # no fallback to the CPU
         d, _ = files
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -6,7 +6,14 @@ settings and the same request sequence. After every request the outputs
 are held as ``test_torch_pipeline.py`` holds them (masks equal; boxes,
 scores and keypoints within its tolerances) and every counter the two
 servers share must be equal; at the end, so must ``stats()``'s shared
-keys. On the CPU the port captures nothing: every bucket runs eagerly.
+keys, which are all of the JAX server's. On the CPU the port captures
+nothing: every bucket runs eagerly.
+
+The crop kernel's oversize watch: on the CPU both servers default to
+``crop_kernel`` off and report its four keys alike. With it on, the port
+counts every valid box of the observed batches and none past a window
+(K1 has none: never degraded) while the JAX server, whose windowed crop
+has no CPU counterpart here, serves its exact crop.
 """
 
 import jax.numpy as jnp
@@ -41,7 +48,8 @@ COUNTERS = ("calls", "compiles", "bucket_clamps", "capacity_exhausted",
 POLICY_COUNTERS = ("grows", "shrinks", "overflows", "observations")
 SHARED_STATS = COUNTERS + POLICY_COUNTERS + (
     "warmed_buckets", "mean_load", "latency_samples", "pipeline_samples",
-    "pipeline_depth")
+    "pipeline_depth", "oversize_boxes", "oversize_observed",
+    "crop_kernel_active", "crop_kernel_switches")
 
 
 @pytest.fixture(scope="module")
@@ -96,9 +104,8 @@ class Pair:
         ps, js = self.port.stats(), self.jax.stats()
         for k in SHARED_STATS:
             assert ps[k] == js[k], (k, ps[k], js[k])
-        # the JAX keys the port leaves out: the TPU crop window's watch
-        left_out = {"oversize_boxes", "oversize_observed",
-                    "crop_kernel_active", "crop_kernel_switches"}
+        # the port leaves out none of the JAX server's keys
+        left_out = set()
         assert set(js) - set(ps) == left_out
         return ps
 
@@ -207,3 +214,32 @@ def test_uint8_frames_serve_as_the_normalised_floats(setup):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert server.stats()["compiles"] == 0
+
+
+def test_oversize_watch_with_k1_counts_no_box(setup):
+    """``crop_kernel=True`` on the port (K1, limits infinite) beside the
+    JAX server on its exact crop (``crop_kernel=False``): the same outputs
+    and shared counters; the port observes every valid box of the observed
+    batches, counts none oversize and keeps the kernel active, where the
+    JAX server reports the watch off."""
+    jspec, jyolo, jrekt, yolo, rekt, frames, thresh = setup
+    common = dict(conf_thresh=thresh, max_det=MAX_DET, observe_every=2)
+    port = TwoStageServer(yolo, rekt, policy=AdaptiveCapacity(**POLICY),
+                          crop_kernel=True, **common)
+    ref = JaxServer(jspec, yolo_params=jyolo, rekt_params=jrekt,
+                    policy=JaxCapacity(**POLICY), crop_kernel=False, **common)
+    assert TwoStageServer(yolo, rekt).crop_kernel is False  # auto: off on the CPU
+    outs = {}
+    for srv, x in ((port, torch.from_numpy(frames)), (ref, jnp.asarray(frames))):
+        srv.warmup([B], capacities=[4, 8])
+        outs[srv] = [srv(x) for _ in range(5)]
+    for a, b in zip(outs[port], outs[ref]):
+        _assert_close(a, b)
+    ps, js = port.stats(), ref.stats()
+    for k in COUNTERS + POLICY_COUNTERS:
+        assert ps[k] == js[k], k
+    assert ps["oversize_observed"] == sum(ref.policy.loads) > 0
+    assert (ps["oversize_boxes"], ps["crop_kernel_active"], ps["crop_kernel_switches"]) \
+        == (0, True, 0)
+    assert (js["oversize_boxes"], js["oversize_observed"], js["crop_kernel_active"],
+            js["crop_kernel_switches"]) == (None, None, False, 0)

@@ -182,20 +182,49 @@ def test_num_steps_and_evaluate(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    """The driver's modes that are not ported raise, naming the ROADMAP
-    item that will port them (``device_aug``, the dataset's ``vis_batch``
-    and several devices are ported now): the space-to-depth stem. Several
-    devices refuse what cannot run: fewer than one, or more ranks than
-    CUDA devices (no fallback to fewer)."""
+    """Every mode of the JAX package's ``yolo_driver.main`` is ported now;
+    ``main`` refuses what JAX's refuses: ``packed_stem`` on a spec whose
+    stem it does not fit (JAX's ``ValueError``; on the tiny cfg, which
+    fits, ``main`` goes on to read its dataset), fewer than one device, or
+    more ranks than CUDA devices (no fallback to fewer)."""
     kw = dict(model_cfg="tests/fixtures/tiny_test.cfg", weights_path=None,
               output_path=str(tmp_path), dataset_path=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+    with open(TINY_CFG) as f:
+        text = f.read()
+    assert text.count("size=3\nstride=2") >= 1
+    flat = tmp_path / "flat_stem.cfg"   # block 1 at stride 1: not packable
+    flat.write_text(text.replace("size=3\nstride=2", "size=3\nstride=1", 1))
+    with pytest.raises(ValueError, match="standard YOLOv3"):
+        yolo_driver.main(**dict(kw, model_cfg=str(flat)), packed_stem=True)
+    with pytest.raises(FileNotFoundError):   # past the check: the cfg's empty CSV
         yolo_driver.main(**kw, packed_stem=True)
     with pytest.raises(ValueError, match="n_devices must be ≥ 1"):
         yolo_driver.main(**kw, n_devices=0)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             yolo_driver.main(**dict(kw, device="cuda"), n_devices=4)
+
+
+def test_train_yolo_through_the_packed_stem(tmp_path):
+    """``train_yolo(packed_stem=True)``: one epoch through the packed stem
+    from the same weights as a plain epoch. The first batch's loss (before
+    any update) within 1e-5 relative of the plain run's, the rest of the
+    epoch and its validation loss within 1e-2 (Adam's first steps are
+    ±lr where a gradient is near zero, as the JAX package's
+    ``test_packed_training_step_matches_plain`` notes); the same files."""
+    runs = {}
+    for packed in (False, True):
+        model, opt = _fresh()
+        runs[packed] = _train(tmp_path / str(packed), model, opt, num_epochs=1,
+                              packed_stem=packed)
+    totals = {k: [float(m) for m in re.findall(r"train Epoch: 1, Batch: \d/2, Total: +([-\d.]+)",
+                                              text)] for k, (_, text) in runs.items()}
+    assert len(totals[True]) == 2
+    np.testing.assert_allclose(totals[True][0], totals[False][0], rtol=1e-5)
+    np.testing.assert_allclose(totals[True], totals[False], rtol=1e-2)
+    np.testing.assert_allclose(runs[True][0], runs[False][0], rtol=1e-2)
+    assert (sorted(os.listdir(tmp_path / "True" / "out"))
+            == sorted(os.listdir(tmp_path / "False" / "out")))
 
 
 class _Items:
